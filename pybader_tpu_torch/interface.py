@@ -1,0 +1,643 @@
+"""User interface: the Bader class and config handling.
+
+Port of :mod:`pybader_tpu.interface`: the same configurable attributes,
+result attributes, geometry properties, pipeline entry (``__call__``),
+text results and pickle persistence.  Results are numpy arrays, as in the
+JAX package; each stage moves its inputs to ``device`` ("cuda" by default,
+"cpu" for the plain PyTorch versions) and brings its outputs back.
+
+Not ported yet (ROADMAP Queue 1): the neargrid method and neargrid
+refinement (they raise ``NotImplementedError``), the multi-device mesh,
+and file types other than VASP.
+"""
+from __future__ import annotations
+
+import os
+from ast import literal_eval
+from configparser import ConfigParser
+from contextlib import contextmanager
+from inspect import getmembers, ismodule
+from pickle import dump
+from time import perf_counter
+
+import numpy as np
+import pandas as pd
+import torch
+
+from pybader_tpu_torch import grid as _grid
+from pybader_tpu_torch import io, pipeline
+from pybader_tpu_torch.dunders import __config__
+from pybader_tpu_torch.ops import atoms as atoms_ops
+from pybader_tpu_torch.ops import edges as edges_ops
+from pybader_tpu_torch.ops import reductions
+from pybader_tpu_torch.utils import dtype_calc
+
+# This package's writer for each file type a reader records, swapped into
+# file_info by Bader.from_dict (a JAX-package dict carries the JAX writer).
+_WRITERS = {"VASP": io.vasp.write}
+
+
+@contextmanager
+def _stage(name, multiline=False, record=None):
+    """Stage header + wall-clock print + live tick line.
+
+    Yields a ``tick(msg)`` callable that overwrites one console line.
+    Every stage ends by copying its results to the host, which waits for
+    the device, so the wall time covers the device work.  ``record``, a
+    dict, receives ``record[name] = seconds``.
+    """
+    if multiline:
+        print(f"  {name}:")
+    else:
+        print(f"  {name}: ", end="", flush=True)
+    t0 = perf_counter()
+    state = {"ticked": False}
+
+    def tick(msg):
+        state["ticked"] = True
+        print(f"\r  {name}: {msg}" + " " * 12, end="", flush=True)
+
+    yield tick
+    dt = perf_counter() - t0
+    if record is not None:
+        record[name] = dt
+    if state["ticked"]:
+        print(f"\r  {name}: done in {dt:.3f}s" + " " * 40)
+    elif multiline:
+        print(f"  {name} done in {dt:.3f}s")
+    else:
+        print(f"done in {dt:.3f}s")
+
+
+# Configurable attributes and their allowed types (config.ini type-checking)
+config_attributes = {
+    'method': str,
+    'refine_method': str,
+    'vacuum_tol': (type(None), float),
+    'refine_mode': (str, int),
+    'bader_volume_tol': (type(None), float),
+    'export_mode': (type(None), str, int),
+    'prefix': str,
+    'output': str,
+    'threads': int,
+    'fortran_format': int,
+    'speed_flag': bool,
+    'spin_flag': bool,
+}
+
+DEFAULT_CONFIG = {
+    'method': 'neargrid',
+    'refine_method': 'neargrid',
+    'vacuum_tol': None,
+    'refine_mode': ('changed', 2),
+    'bader_volume_tol': 1e-3,
+    'export_mode': None,
+    'prefix': '',
+    'output': 'pickle',
+    'threads': 1,
+    'fortran_format': 0,
+    'speed_flag': False,
+    'spin_flag': False,
+}
+
+SPEED_CONFIG = {
+    **DEFAULT_CONFIG,
+    'method': 'ongrid',
+    'refine_method': 'neargrid',
+    'refine_mode': ('changed', 3),
+    'speed_flag': True,
+}
+
+
+def python_config(config_file=__config__, key='DEFAULT'):
+    """Load a typed config profile from the ini file.
+
+    Falls back to the built-in DEFAULT / speed profiles when no config file
+    exists yet.
+    """
+    if not os.path.isfile(config_file):
+        if key.lower() == 'speed':
+            return dict(SPEED_CONFIG)
+        return dict(DEFAULT_CONFIG)
+    config = ConfigParser()
+    with open(config_file, 'r') as f:
+        config.read_file(f)
+    if key not in config:
+        print(f"  No config for {key} found")
+    out = {}
+    for k in config[key]:
+        if k not in config_attributes:
+            raise AttributeError(f"  Unknown keyword in config.ini: {k}")
+        try:
+            out[k] = literal_eval(config[key].get(k))
+        except (ValueError, SyntaxError):
+            if config_attributes[k] is str:
+                out[k] = config[key].get(k)
+            else:
+                raise
+        if not isinstance(out[k], config_attributes[k]):
+            err = f"  {k} has wrong type: {type(out[k])} != {config_attributes[k]}"
+            if hasattr(out[k], '__iter__') and not isinstance(out[k], str):
+                for t in out[k]:
+                    if not isinstance(t, config_attributes[k]):
+                        raise TypeError(err)
+            else:
+                raise TypeError(err)
+    return out
+
+
+class Bader:
+    """Grid-based Bader charge analysis with PyTorch and CUDA.
+
+    args:
+        density_dict: dict with 'charge' and/or 'spin' float64 grids
+        lattice: 3x3 lattice (rows are lattice vectors, cartesian)
+        atoms: cartesian atom positions (N, 3)
+        file_info: provenance dict (filename, prefix, file_type,
+                   voxel_offset, write_function, ...)
+        **kwargs: any configurable attribute (see config_attributes), plus
+                  ``device`` -- where the stages run: "cuda" (the default;
+                  hand-written kernels, a failed build or launch raises)
+                  or "cpu" (the plain PyTorch versions).  Not a config.ini
+                  key.
+    """
+
+    device = "cuda"
+
+    def __init__(self, density_dict, lattice, atoms, file_info, **kwargs):
+        self._density = density_dict
+        self._lattice = np.asarray(lattice, dtype=np.float64)
+        self._atoms = np.asarray(atoms, dtype=np.float64)
+        self._file_info = file_info
+        self._dataframe = None
+        self.stage_seconds = {}
+        self.density = self.charge if self.charge is not None else self.spin
+        self.reference = self.density
+        self.load_config()
+        self.apply_config(kwargs)
+
+    # ------------------------------------------------------------------ io
+    @classmethod
+    def from_file(cls, filename, file_type=None, **kwargs):
+        """Initialise from a density file, dispatching on extension."""
+        if file_type is not None:
+            file_type = file_type.lower()
+            io_ = None
+            for f_type, f_method in getmembers(io, ismodule):
+                if f_type == file_type:
+                    io_ = f_method
+            if io_ is None or not hasattr(io_, 'read'):
+                known = [n for n, m in getmembers(io, ismodule)
+                         if hasattr(m, 'read')]
+                raise ValueError(
+                    f"unknown file_type {file_type!r}; available: {known}"
+                )
+            file_conf = {k: v for k, v in kwargs.items() if k in io_.__args__}
+            return cls(*io_.read(filename, **file_conf), **kwargs)
+        for name, package in getmembers(io, ismodule):
+            if getattr(package, '__extensions__', None) is None:
+                continue
+            for ext in package.__extensions__:
+                if ext in filename.lower():
+                    file_conf = {
+                        k: v for k, v in kwargs.items()
+                        if k in package.__args__
+                    }
+                    return cls(*package.read(filename, **file_conf), **kwargs)
+        print("  No clear file type found; file will be read as chgcar.")
+        file_conf = {k: v for k, v in kwargs.items() if k in io.vasp.__args__}
+        return cls(*io.vasp.read(filename, **file_conf), **kwargs)
+
+    @classmethod
+    def from_dict(cls, d, **kwargs):
+        """Recreate an instance from :attr:`as_dict` output -- this
+        package's or the JAX package's (numpy arrays either way).
+
+        ``file_info['write_function']`` is replaced by this package's
+        writer for the file type (dropped where none is ported), so a
+        dict from the JAX package carries none of its functions over.
+        ``kwargs`` (e.g. ``device``) go to the constructor.
+        """
+        d = dict(d)
+        atoms = d.pop('_atoms')
+        lattice = d.pop('_lattice')
+        density = d.pop('_density')
+        file_info = dict(d.pop('_file_info'))
+        file_info.pop('write_function', None)
+        writer = _WRITERS.get(file_info.get('file_type'))
+        if writer is not None:
+            file_info['write_function'] = writer
+        self = cls(density, lattice, atoms, file_info, **kwargs)
+        for k, v in d.items():
+            try:
+                setattr(self, k, v)
+            except AttributeError:
+                pass
+        return self
+
+    @property
+    def as_dict(self):
+        d = {}
+        keys = [
+            '_density', '_lattice', '_atoms', '_file_info', '_bader_maxima',
+            '_vacuum_charge', '_vacuum_volume', *config_attributes.keys(),
+            'density', 'reference', 'bader_charge', 'bader_volume',
+            'bader_spin', 'bader_volumes', 'bader_atoms', 'bader_distance',
+            'atoms_charge', 'atoms_volume', 'atoms_spin', 'atoms_volumes',
+            'atoms_surface_distance',
+        ]
+        for key in keys:
+            try:
+                d[key] = getattr(self, key)
+            except AttributeError:
+                pass
+        return d
+
+    # ------------------------------------------------------------ properties
+    @property
+    def info(self):
+        return self._file_info
+
+    @property
+    def charge(self):
+        return self._density.get('charge', None)
+
+    @property
+    def spin(self):
+        return self._density.get('spin', None)
+
+    @spin.setter
+    def spin(self, array):
+        self._density['spin'] = np.asarray(array, dtype=np.float64)
+
+    @property
+    def spin_bool(self):
+        return self.spin_flag if self.spin is not None else False
+
+    @spin_bool.setter
+    def spin_bool(self, flag):
+        self.spin_flag = flag
+
+    @property
+    def lattice(self):
+        return self._lattice
+
+    @property
+    def lattice_volume(self):
+        return _grid.lattice_volume(self.lattice)
+
+    @property
+    def distance_matrix(self):
+        return _grid.distance_matrix(self.lattice, self.density.shape)
+
+    @property
+    def distance_weights(self):
+        return _grid.distance_weights(self.lattice, self.density.shape)
+
+    @property
+    def voxel_lattice(self):
+        return _grid.voxel_lattice(self.lattice, self.density.shape)
+
+    @property
+    def voxel_volume(self):
+        return _grid.voxel_volume(self.lattice, self.density.shape)
+
+    @property
+    def voxel_offset(self):
+        return np.dot(self.voxel_offset_fractional, self.voxel_lattice)
+
+    @property
+    def voxel_offset_fractional(self):
+        return self.info['voxel_offset']
+
+    @property
+    def T_grad(self):
+        return _grid.t_grad(self.lattice, self.density.shape)
+
+    @property
+    def atoms(self):
+        return self._atoms
+
+    @atoms.setter
+    def atoms(self, array):
+        array = np.asarray(array).reshape(-1)
+        self._atoms = np.ascontiguousarray(
+            array.reshape(array.shape[0] // 3, 3)
+        )
+
+    @property
+    def atoms_fractional(self):
+        return np.dot(self.atoms, np.linalg.inv(self.lattice))
+
+    @property
+    def bader_maxima(self):
+        """Bader maxima in cartesian coordinates."""
+        return np.dot(self.bader_maxima_fractional, self.lattice)
+
+    @bader_maxima.setter
+    def bader_maxima(self, maxima):
+        """Set from voxel indices -> stored fractional."""
+        maxima = np.add(maxima, self.voxel_offset_fractional)
+        maxima = np.divide(maxima, self.density.shape)
+        self._bader_maxima = np.ascontiguousarray(maxima)
+
+    @property
+    def bader_maxima_fractional(self):
+        try:
+            return self._bader_maxima
+        except AttributeError:
+            print("  ERROR: bader_maxima not yet set.")
+            return None
+
+    @property
+    def vacuum_charge(self):
+        return getattr(self, '_vacuum_charge', 0.)
+
+    @vacuum_charge.setter
+    def vacuum_charge(self, value):
+        self._vacuum_charge = value
+
+    @property
+    def vacuum_volume(self):
+        return getattr(self, '_vacuum_volume', 0.)
+
+    @vacuum_volume.setter
+    def vacuum_volume(self, value):
+        self._vacuum_volume = value
+
+    @property
+    def dataframe(self):
+        if self._dataframe is None:
+            cols = {
+                'a': pd.Series(self.atoms_fractional[:, 0]),
+                'b': pd.Series(self.atoms_fractional[:, 1]),
+                'c': pd.Series(self.atoms_fractional[:, 2]),
+                'Charge': pd.Series(self.atoms_charge),
+            }
+            if self.spin_bool:
+                cols['Spin'] = pd.Series(self.atoms_spin)
+            cols['Volume'] = pd.Series(self.atoms_volume)
+            cols['Distance'] = pd.Series(self.atoms_surface_distance)
+            if not self.speed_flag:
+                extra = {
+                    'a': self.bader_maxima_fractional[:, 0],
+                    'b': self.bader_maxima_fractional[:, 1],
+                    'c': self.bader_maxima_fractional[:, 2],
+                    'Charge': self.bader_charge,
+                }
+                if self.spin_bool:
+                    extra['Spin'] = self.bader_spin
+                extra['Volume'] = self.bader_volume
+                extra['Distance'] = self.bader_distance
+                for k in cols:
+                    cols[k] = pd.concat(
+                        [cols[k], pd.Series(extra[k])], ignore_index=False
+                    )
+            self._dataframe = pd.DataFrame(cols)
+        return self._dataframe
+
+    @dataframe.setter
+    def dataframe(self, df):
+        self._dataframe = df
+
+    # ---------------------------------------------------------- calculation
+    def _dev(self, array, dtype):
+        """``array`` (numpy or tensor) as a contiguous tensor on device."""
+        return torch.as_tensor(array).to(device=self.device,
+                                          dtype=dtype).contiguous()
+
+    def __call__(self, **kwargs):
+        """Run the full Bader pipeline (reference interface.py:399-447)."""
+        self.apply_config(kwargs)
+        self._dataframe = None
+        self.stage_seconds = {}
+        self.volumes_init()
+        self.bader_calc()
+        if not self.speed_flag:
+            self.refine_volumes(self.bader_volumes)
+            self.sum_volumes(bader=True)
+        self.bader_to_atom_distance()
+        if self.speed_flag:
+            self.refine_volumes(self.atoms_volumes)
+            try:
+                del self.bader_volumes
+            except AttributeError:
+                pass
+        self.min_surface_distance()
+        self.sum_volumes()
+        if self.export_mode is not None:
+            print(f"\n  Writing Bader {self.export_mode[0]} to file:")
+            count = (
+                self.bader_maxima.shape[0]
+                if self.export_mode[0] == 'volumes' else self.atoms.shape[0]
+            )
+            sel = self.export_mode[1]
+            if sel[0] == -2:
+                for vol_num in range(count):
+                    self.write_volume(vol_num)
+                if self.vacuum_tol is not None:
+                    self.write_volume(-1)
+            else:
+                for vol_num in sel:
+                    self.write_volume(vol_num)
+        print('\n  Writing output file: ', end='')
+        if self.output == 'pickle':
+            self.to_file()
+        elif self.output == 'dat':
+            fn = self.prefix + self.info['filename']
+            with open(fn + '-atoms.dat', 'w') as f:
+                f.write(self.results())
+            if not self.speed_flag:
+                with open(fn + '-volumes.dat', 'w') as f:
+                    f.write(self.results(volume_flag=True))
+        print('Done.')
+
+    def volumes_init(self, volumes=None):
+        """Initialise (or re-mask) the volumes array using vacuum_tol."""
+        if volumes is None:
+            dtype = dtype_calc(-int(np.prod(self.density.shape)))
+            volumes = np.zeros(self.density.shape, dtype=dtype)
+        else:
+            volumes = np.asarray(volumes)
+        if self.vacuum_tol is not None:
+            try:
+                vac_tol = np.float64(self.vacuum_tol)
+                mask, vc, vv = reductions.vacuum_mask(
+                    self._dev(self.reference, torch.float64), float(vac_tol),
+                    self._dev(self.density, torch.float64),
+                    self.voxel_volume,
+                )
+                volumes = np.where(
+                    mask.cpu().numpy(), np.array(-1, dtype=volumes.dtype),
+                    volumes,
+                )
+                self.vacuum_charge = vc
+                self.vacuum_volume = vv
+            except (ValueError, TypeError) as e:
+                print(f"  VACUUM_TOL ERROR: {self.vacuum_tol} is not float")
+                print(f"  {e}")
+        self.bader_volumes = volumes
+
+    def bader_calc(self):
+        """Partition the grid into Bader volumes."""
+        weights = tuple(self.distance_weights)
+        vacuum = None
+        vols = np.asarray(self.bader_volumes)
+        if (vols == -1).any():
+            vacuum = self._dev(vols == -1, torch.bool)
+        with _stage("Calculating Bader volumes",
+                    record=self.stage_seconds) as tick:
+            if self.method == 'ongrid':
+                labels, maxima = pipeline.partition_ongrid(
+                    self._dev(self.reference, torch.float64), vacuum,
+                    weights, progress=tick)
+            elif self.method == 'neargrid':
+                labels, maxima = pipeline.partition_neargrid()
+            else:
+                raise ValueError(f"Unknown method: {self.method}")
+            dtype = dtype_calc(-max(int(maxima.shape[0]), 1))
+            self.bader_volumes = labels.cpu().numpy().astype(dtype)
+        self.bader_maxima = maxima
+
+    def bader_to_atom_distance(self):
+        """Assign each Bader maximum to its nearest atom (27 pbc images)."""
+        maxima_cart = self.bader_maxima
+        with _stage("Assigning maxima to atoms", record=self.stage_seconds):
+            atom_idx, dist = atoms_ops.assign_to_atoms(
+                self._dev(maxima_cart, torch.float64),
+                self._dev(self.atoms, torch.float64),
+                self._dev(self.lattice, torch.float64),
+            )
+            self.bader_atoms = atom_idx.cpu().numpy()
+            self.bader_distance = dist.cpu().numpy()
+            atoms_vols = reductions.relabel(
+                self._dev(self.bader_volumes, torch.int32), atom_idx)
+            dtype = dtype_calc(-max(int(self.atoms.shape[0]), 1))
+            self.atoms_volumes = atoms_vols.cpu().numpy().astype(dtype)
+
+    def refine_volumes(self, volumes):
+        """Refine edges of the given label map in place."""
+        with _stage("Refining volume edges", multiline=True,
+                    record=self.stage_seconds) as tick:
+            refined, _ = pipeline.refine_labels(
+                self.refine_method, self.refine_mode, self.reference,
+                volumes, tuple(self.distance_weights), self.T_grad,
+                progress=tick,
+            )
+            np.copyto(volumes, np.asarray(refined).astype(volumes.dtype))
+
+    def sum_volumes(self, bader=False):
+        """Integrate charge/spin/volume per Bader volume or per atom."""
+        if bader:
+            n = self._bader_maxima.shape[0]
+            labels = self.bader_volumes
+            prefix = 'bader'
+        else:
+            n = self.atoms.shape[0]
+            labels = self.atoms_volumes
+            prefix = 'atoms'
+        with _stage(f"Integrating {prefix} charges",
+                    record=self.stage_seconds):
+            labels_dev = self._dev(labels, torch.int32)
+
+            def sums(density):
+                charge, volume = reductions.charge_volume_sum(
+                    self._dev(density, torch.float64), labels_dev,
+                    self.voxel_volume, n)
+                return charge.cpu().numpy(), volume.cpu().numpy()
+
+            charge, volume = sums(self.density)
+            setattr(self, f'{prefix}_charge', charge)
+            setattr(self, f'{prefix}_volume', volume)
+            if self.spin_bool:
+                spin, _ = sums(self.spin)
+                setattr(self, f'{prefix}_spin', spin)
+
+    def min_surface_distance(self):
+        """Minimum distance from each atom to its Bader-volume surface."""
+        atoms = self.atoms - self.voxel_offset
+        with _stage("Calculating min. surface distance",
+                    record=self.stage_seconds):
+            labels = self._dev(self.atoms_volumes, torch.int32)
+            known = edges_ops.edge_find(
+                self._dev(self.reference, torch.float64), labels)
+            dist = atoms_ops.surface_distance_masked(
+                labels, known == -2, self._dev(self.lattice, torch.float64),
+                self._dev(atoms, torch.float64), int(self.atoms.shape[0]),
+            )
+            self.atoms_surface_distance = dist.cpu().numpy()
+
+    # -------------------------------------------------------------- results
+    def results(self, volume_flag=False):
+        """Format results as fixed-width text (reference interface.py:536)."""
+        if volume_flag:
+            df = self.dataframe[self.atoms.shape[0]:]
+            tol = self.bader_volume_tol
+            if tol is not None:
+                df = df[df['Charge'] > tol]
+        else:
+            df = self.dataframe[:self.atoms.shape[0]]
+        df_text = df.to_string(
+            float_format='{:.6f}'.format, justify='center'
+        ).split('\n')
+        for i, line in enumerate(df_text):
+            df_text[i] = ' ' + line + '\n'
+        df_text.insert(1, '-' * len(df_text[0]) + '\n')
+        df_text.append('-' * len(df_text[0]) + '\n')
+        df_text = ''.join(df_text)
+        footer = ''
+        tot_charge = df['Charge'].sum()
+        footer_width = int(np.log10(np.abs(tot_charge)) + 8) if tot_charge else 8
+        if self.vacuum_tol is not None:
+            vac_items = [self.vacuum_charge, self.vacuum_volume]
+            with np.errstate(divide='ignore'):
+                logs = np.log10(np.abs([v for v in vac_items if v != 0] or [1]))
+            vac_width = int(np.max(logs)) + 8
+            footer_width = max(footer_width, vac_width)
+            footer = " Vacuum Charge:"
+            footer += f"{self.vacuum_charge:>{footer_width + 6}.4f}\n"
+            footer += " Vacuum Volume:"
+            footer += f"{self.vacuum_volume:>{footer_width + 6}.4f}\n"
+        footer += " Number of Electrons:"
+        footer += f"{tot_charge:>{footer_width}.4f}"
+        return df_text + footer
+
+    # --------------------------------------------------------------- config
+    def apply_config(self, d):
+        for k, value in d.items():
+            setattr(self, k, value)
+
+    def load_config(self, key='DEFAULT'):
+        self.apply_config(python_config(key=key))
+
+    # --------------------------------------------------------------- output
+    def to_file(self):
+        """Pickle self to prefix + 'bader.p' (or info['out_dest'])."""
+        filename = self.info.get('out_dest', self.prefix + 'bader.p')
+        with open(filename, '+wb') as f:
+            dump(self, f)
+
+    def write_volume(self, vol_num):
+        """Export the density masked to one Bader volume or atom."""
+        density = {}
+        if self.export_mode[0] == 'volumes':
+            volumes = self.bader_volumes
+        else:
+            volumes = self.atoms_volumes
+        if self.charge is not None:
+            density['charge'] = np.where(
+                volumes == vol_num, self.charge, 0.0
+            )
+        if self.spin is not None:
+            density['spin'] = np.where(volumes == vol_num, self.spin, 0.0)
+        num = vol_num if vol_num != -1 else 'vacuum'
+        self._file_info['comment'] = f"Bader {self.export_mode[0]}: {num}\n"
+        self._file_info['fortran_format'] = self.fortran_format
+        # INTENTIONAL QUIRK: exported volumes use the prefix captured in
+        # file_info at read time, NOT the live self.prefix config value --
+        # faithful to the reference, which also ignores a prefix set after
+        # from_file for these exports.
+        self.info['write_function'](
+            f"Bader-{self.export_mode[0]}-{num}", self.atoms, self.lattice,
+            density, self.info, prefix=self.info['prefix'],
+        )

@@ -1,0 +1,8 @@
+"""I/O subpackage: density-file readers and writers.
+
+Same contract as :mod:`pybader_tpu.io`: every module exposes
+``__extensions__``, ``__args__`` and ``read(filename, **kw) -> (density_dict,
+lattice, atoms, file_info)``.  Only the VASP format is ported so far; cube,
+gpaw and pymatgen are later work (ROADMAP Queue 1).
+"""
+from pybader_tpu_torch.io import vasp  # noqa: F401

@@ -1,0 +1,46 @@
+"""The PyTorch port never imports jax (neither does chip_smoke.py)."""
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "pybader_tpu_torch")
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = []
+    for d, _, names in os.walk(PORT):
+        pkg = os.path.relpath(d, ROOT).replace(os.sep, ".")
+        mods += [pkg if n == "__init__.py" else f"{pkg}.{n[:-3]}"
+                 for n in names if n.endswith(".py")]
+    code = (
+        "import importlib, sys\n"
+        f"mods = {sorted(mods)!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'pybader_tpu.')) or m == 'pybader_tpu')\n"
+        "assert not bad, bad\n"
+        "assert len(mods) >= 14, mods\n"
+        "print(len(mods))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_port_sources_have_no_jax_import():
+    # pybader_tpu\b does not match pybader_tpu_torch
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|pybader_tpu)\b", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PORT):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            if pattern.search(f.read()):
+                offenders.append(os.path.relpath(path, ROOT))
+    assert len(files) > 10
+    assert not offenders, offenders

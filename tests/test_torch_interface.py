@@ -1,0 +1,147 @@
+"""End-to-end parity of the port's Bader class and CLI on the committed
+CHGCAR fixture, ``method='ongrid'`` (with ``refine_method='ongrid'``, what
+``bader -m ongrid`` sets).
+
+Both packages get the same density, lattice, atoms and file_info: the port
+through ``Bader.from_dict`` of the JAX object's ``as_dict``.  Volume maps
+and maxima are identical; charges, volumes and distances agree to 1e-10;
+the CLI's ``-o dat`` files equal the JAX ``results()`` text.
+"""
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from pybader_tpu.interface import Bader as JaxBader
+from pybader_tpu_torch import entry_points
+from pybader_tpu_torch.interface import Bader
+from pybader_tpu_torch.io import vasp
+
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(HERE, "fixtures", "CHGCAR_fixture")
+ONGRID = dict(method="ongrid", refine_method="ongrid")
+ARRAYS = ["bader_charge", "bader_volume", "bader_distance", "atoms_charge",
+          "atoms_volume", "atoms_surface_distance"]
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jb = JaxBader.from_file(FIXTURE, **ONGRID)
+    tb = Bader.from_dict(jb.as_dict, device="cpu")
+    jb(output=None)
+    tb(output=None)
+    return jb, tb
+
+
+def test_volume_maps_and_maxima_identical(pair):
+    jb, tb = pair
+    for key in ("bader_volumes", "atoms_volumes", "bader_atoms"):
+        got, want = getattr(tb, key), getattr(jb, key)
+        assert got.dtype == want.dtype, key
+        np.testing.assert_array_equal(got, want, err_msg=key)
+    np.testing.assert_array_equal(tb.bader_maxima_fractional,
+                                  jb.bader_maxima_fractional)
+
+
+@pytest.mark.parametrize("key", ARRAYS)
+def test_charges_volumes_distances_within_1e10(pair, key):
+    jb, tb = pair
+    np.testing.assert_allclose(getattr(tb, key), getattr(jb, key),
+                               rtol=0, atol=1e-10)
+
+
+def test_results_text_identical(pair):
+    jb, tb = pair
+    assert tb.results() == jb.results()
+    assert tb.results(volume_flag=True) == jb.results(volume_flag=True)
+
+
+def test_from_dict_swaps_in_port_writer(pair):
+    _, tb = pair
+    assert tb.info["write_function"] is vasp.write
+    assert tb.device == "cpu" and Bader.device == "cuda"
+
+
+def test_from_file_reads_like_jax():
+    jb = JaxBader.from_file(FIXTURE)
+    tb = Bader.from_file(FIXTURE)
+    np.testing.assert_array_equal(tb.charge, jb.charge)
+    np.testing.assert_array_equal(tb.lattice, jb.lattice)
+    np.testing.assert_array_equal(tb.atoms, jb.atoms)
+    assert tb.method == jb.method and tb.refine_mode == jb.refine_mode
+    keys = set(jb.info) - {"write_function"}
+    assert keys == set(tb.info) - {"write_function"}
+    for k in keys:
+        np.testing.assert_array_equal(tb.info[k], jb.info[k])
+
+
+def test_cli_dat_files_equal_jax_results(pair, tmp_path, monkeypatch):
+    jb, _ = pair
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(entry_points, "__config__",
+                        str(tmp_path / "cfg" / "config.ini"))
+    entry_points.bader([FIXTURE, "-m", "ongrid", "-o", "dat",
+                        "--device", "cpu"])
+    with open("CHGCAR_fixture-atoms.dat") as f:
+        assert f.read() == jb.results()
+    with open("CHGCAR_fixture-volumes.dat") as f:
+        assert f.read() == jb.results(volume_flag=True)
+
+
+def test_vacuum_and_spin_match_jax(tmp_path):
+    jb = JaxBader.from_file(FIXTURE, vacuum_tol=0.2, spin_flag=True, **ONGRID)
+    jb.spin = jb.charge * 0.25 - 2.0
+    tb = Bader.from_dict(jb.as_dict, device="cpu")
+    jb(output=None)
+    tb(output=None)
+    assert jb.vacuum_volume > 0
+    np.testing.assert_array_equal(tb.bader_volumes, jb.bader_volumes)
+    np.testing.assert_allclose([tb.vacuum_charge, tb.vacuum_volume],
+                               [jb.vacuum_charge, jb.vacuum_volume],
+                               rtol=0, atol=1e-10)
+    for key in ARRAYS + ["bader_spin", "atoms_spin"]:
+        np.testing.assert_allclose(getattr(tb, key), getattr(jb, key),
+                                   rtol=0, atol=1e-10, err_msg=key)
+    assert tb.results() == jb.results()
+
+
+def test_export_volume_file_identical(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    src = tmp_path / "CHGCAR"
+    shutil.copy(FIXTURE, src)
+    for cls, sub, kw in ((JaxBader, "jax", {}), (Bader, "port",
+                                                  {"device": "cpu"})):
+        b = cls.from_file(str(src), **ONGRID, **kw)
+        b.info["prefix"] = str(tmp_path / sub) + os.sep
+        os.makedirs(b.info["prefix"])
+        b(output=None, export_mode=("atoms", [0]))
+    want = (tmp_path / "jax" / "Bader-atoms-0-CHGCAR").read_text()
+    assert (tmp_path / "port" / "Bader-atoms-0-CHGCAR").read_text() == want
+
+
+def test_neargrid_method_not_ported():
+    b = Bader.from_file(FIXTURE, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        b(output=None)  # default profile: method='neargrid'
+
+
+def test_ongrid_with_neargrid_refinement_not_ported():
+    b = Bader.from_file(FIXTURE, method="ongrid", device="cpu")
+    assert b.refine_method == "neargrid"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        b(output=None)
+
+
+def test_cli_profile_writes_chrome_trace(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(entry_points, "__config__",
+                        str(tmp_path / "cfg" / "config.ini"))
+    entry_points.bader([FIXTURE, "-m", "ongrid", "-o", "dat",
+                        "--device", "cpu", "--profile", "prof"])
+    trace = tmp_path / "prof" / "trace.json"
+    assert trace.exists() and trace.stat().st_size > 0
+    assert (tmp_path / "CHGCAR_fixture-atoms.dat").exists()

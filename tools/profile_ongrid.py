@@ -1,0 +1,122 @@
+"""Device-time breakdown of the ongrid ``Bader()`` run of chip_smoke.py.
+
+Run from the repository root on a machine with one CUDA GPU:
+
+    python3 tools/profile_ongrid.py [--size 384] [--warm 3] [--trace PATH]
+
+It builds chip_smoke's blob density at ``--size``^3, runs
+``Bader(method='ongrid')()`` on the card ``--warm`` times unprofiled, then
+once under ``torch.profiler``, and prints the wall time of each run and one
+JSON line with the device time of the profiled run by kind: host<->device
+copies, each hand-written kernel of ``pybader_tpu_torch/csrc``, every other
+kernel, and the share of the wall time in which the device was busy.
+``--trace`` also writes the chrome trace.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+
+# __global__ functions of csrc/*.cu, matched in the demangled kernel names
+HAND_WRITTEN = ("ongrid_step_codes_kernel", "jump_kernel", "min_pair_kernel",
+                "remap_kernel", "charge_volume_kernel",
+                "surface_min_d2_kernel", "fill_int_kernel",
+                "zero_sums_kernel", "fill_u64_kernel")
+
+
+def timed_call(density, atoms, tmp):
+    b = chip_smoke.blob_bader(density, atoms, tmp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, b.stage_seconds
+
+
+def kind_of(name: str) -> str:
+    if name.startswith("Memcpy"):
+        for d in ("HtoD", "DtoH", "DtoD"):
+            if d in name:
+                return f"memcpy {d}"
+        return "memcpy other"
+    if name.startswith("Memset"):
+        return "memset"
+    for k in HAND_WRITTEN:
+        if k in name:
+            return k
+    return "other kernels"
+
+
+def breakdown(prof, wall_s: float) -> dict:
+    """Device activity of a profiled run: per kind (count, ms), the
+    hand-written kernels' total, and the busy share of the wall time
+    (union of the device intervals)."""
+    from torch.autograd import DeviceType
+
+    rows, spans = {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        n, us = rows.get(kind_of(e.name), (0, 0.0))
+        rows[kind_of(e.name)] = (n + 1, us + (t1 - t0))
+    busy_us, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            busy_us += t1 - max(t0, end)
+            end = t1
+    return {
+        "wall_s": wall_s,
+        "busy_share": busy_us / (wall_s * 1e6),
+        "hand_written_ms": sum(us for k, (_, us) in rows.items()
+                               if k in HAND_WRITTEN) / 1e3,
+        "kinds": {k: {"count": n, "ms": us / 1e3}
+                  for k, (n, us) in sorted(rows.items())},
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--size", type=int, default=chip_smoke.SIZE)
+    ap.add_argument("--warm", type=int, default=3)
+    ap.add_argument("--trace", help="write the chrome trace to this path")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("profile_ongrid: no CUDA device")
+    chip_smoke.card()
+    from torch.profiler import ProfilerActivity, profile
+
+    shape = (args.size,) * 3
+    rho, atoms = chip_smoke.blob_field(shape, "cuda")
+    density = rho.cpu().numpy()
+    del rho
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(args.warm):
+            wall, stages = timed_call(density, atoms, tmp)
+            print(f"warm {i}: {wall:.3f} s {json.dumps(stages)}", flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, stages = timed_call(density, atoms, tmp)
+    print(f"profiled: {wall:.3f} s {json.dumps(stages)}", flush=True)
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
+                    exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    print(json.dumps(breakdown(prof, wall)))
+
+
+if __name__ == "__main__":
+    main()
