@@ -6,19 +6,39 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (one line of output each, or a few):
   1. card: nvidia-smi name and power limit; no CUDA device -> exit 1
-  2. build: compile the CUDA kernels from pybader_tpu_torch/csrc
+  2. build: compile the CUDA kernels from pybader_tpu_torch/csrc (one nvcc
+     process per source, all at once)
   3. field: a 384^3 f64 blob density (60 blobs, seed 1) made on the card
-  4. kernels: each of the six kernels against its plain PyTorch version on
-     the card, on the inputs the ongrid path gives it at 384^3, with both
-     times (CUDA events, median of 5)
-  5. noise: a 384^3 white-noise field (about 2 M basins): the five
+  4. kernel: each of the six ongrid-path kernels against its plain PyTorch
+     version on the card, on the inputs the ongrid path gives it at 384^3
+  5. neargrid: the four refinement kernels at 384^3 on the same field:
+     edge_find on the ongrid labels, neargrid_rows for both gradient tests,
+     neargrid_walk on iteration 1's full edge set (stop at known == 2, the
+     refinement cap) and edge_check on the known grid after that iteration
+  6. noise: a 384^3 white-noise field (about 2 M basins): the five
      partition and sum kernels against their plain versions at that label
      count, then the main-path partition and sums against the plain chain
-  6. cli: the ``bader`` CLI (-m ongrid) on tests/fixtures/CHGCAR_fixture,
-     charge conserved to rtol 1e-9
-  7. e2e: ``Bader(..., method='ongrid')()`` at 384^3 with the launch
-     counters reset just before; every kernel must have launched, charge
+  7. cli: the ``bader`` CLI on tests/fixtures/CHGCAR_fixture, with -m
+     ongrid (charge conserved) and with the default profile (per-atom
+     charges, volumes and maxima against the fixture's golden file)
+  8. e2e: ``Bader(..., method='ongrid')()`` at 384^3 with the launch
+     counters reset just before; its six kernels must have launched, charge
      must be conserved and the labels must equal the plain pipeline's
+  9. default: ``Bader(...)()`` with the default profile at 384^3 (the
+     hybrid: ongrid init, ('changed', 9) internal refinement chained into
+     ('changed', 2)); all ten kernels must have launched, charge must be
+     conserved, and the volume maps must equal the same call with every op
+     on its plain version on the card
+ 10. full: at 256^3, neargrid_walk against its plain version on 2^20
+     random starts with the initial cap, then the full-trajectory
+     ``partition_neargrid`` through the kernels (charge conserved)
+
+Times are CUDA events, median of 5.  Each kernel's bound is the least time
+the card could take for its work: the larger of the bytes it must move
+(inputs read once, outputs written once; for the walk, the rows its lanes
+touch) over 3.35 TB/s and its f64 operations over 34 TFLOP/s (H100 SXM data
+sheet).  ``library_ms`` times one PyTorch call that computes the same
+function where one exists; the port never calls it.
 
 Any failure raises (non-zero exit, no result line).  The second-to-last
 line is the kernel table as JSON; the last line is
@@ -34,15 +54,23 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
+from unittest import mock
 
 import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "tests", "fixtures", "CHGCAR_fixture")
+GOLDEN = os.path.join(HERE, "tests", "fixtures", "CHGCAR_fixture_golden.json")
+DEVICE = "cuda"
 SIZE = 384
+FULL_SIZE = 256
+WALK_STARTS = 1 << 20
 N_BLOBS = 60
 LATTICE = np.diag([20.0, 20.0, 20.0])
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
+F64_OPS_PER_S = 34e12      # H100 SXM, f64 outside the tensor cores
 
 # kernel -> (CUDA source, TPU kernel it replaces: file:line of pallas_call)
 KERNELS = {
@@ -58,7 +86,17 @@ KERNELS = {
                       "pybader_tpu/ops/pallas_reduce.py:105"),
     "surface_min_d2": ("pybader_tpu_torch/csrc/reduce.cu",
                        "pybader_tpu/ops/pallas_reduce.py:255"),
+    "edge_find": ("pybader_tpu_torch/csrc/edges.cu",
+                  "pybader_tpu/ops/pallas_edges.py:178"),
+    "edge_check": ("pybader_tpu_torch/csrc/edges.cu",
+                   "pybader_tpu/ops/pallas_edges.py:178"),
+    # the XLA walk rows and walker, which ROADMAP gives hand-written kernels
+    "neargrid_rows": ("pybader_tpu_torch/csrc/neargrid.cu",
+                      "pybader_tpu/ops/neargrid.py:484"),
+    "neargrid_walk": ("pybader_tpu_torch/csrc/neargrid.cu",
+                      "pybader_tpu/ops/neargrid.py:647"),
 }
+ONGRID_KERNELS = tuple(KERNELS)[:6]
 
 
 def say(phase, msg):
@@ -124,17 +162,32 @@ def max_abs_err(a, b):
     return float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
 
 
-def compare(name, results, kernel, plain, check, phase="kernel"):
+def bound(nbytes, f64_ops=0):
+    """The least time for the work: bytes over the memory rate or f64
+    operations over the f64 rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f64_ops / F64_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def compare(name, results, kernel, plain, check, phase, cost, library=None):
+    """Run kernel and plain version once, check them, time both (and the
+    library call, where there is one) and record the row of the table."""
     out_k, out_p = kernel(), plain()
     check(out_k, out_p)
     ms = time_ms(kernel)
     plain_ms = time_ms(plain)
+    library_ms = None if library is None else time_ms(library)
     if not isinstance(out_k, tuple):
         out_k, out_p = (out_k,), (out_p,)
     err = max(max_abs_err(a, b) for a, b in zip(out_k, out_p))
-    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **cost, "library_ms": library_ms}
+    lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
     say(phase, f"{name}: ok, max_abs_err {err}, kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
+        f"plain {plain_ms:.3f} ms{lib}, bound {cost['bound_ms']:.3f} ms "
+        f"({cost['bound_by']})")
     return out_p if len(out_p) > 1 else out_p[0]
 
 
@@ -145,6 +198,12 @@ def equal(a, b):
         return
     if not torch.equal(a, b):
         raise AssertionError("kernel and plain outputs differ")
+
+
+def bits_equal(a, b):
+    """Identical bit patterns (torch.equal takes -0.0 == 0.0)."""
+    if not torch.equal(a.view(torch.int64), b.view(torch.int64)):
+        raise AssertionError("kernel and plain outputs differ in their bits")
 
 
 def close(rtol):
@@ -168,16 +227,20 @@ def partition_kernels(rho, shape, res, phase="kernel"):
     from pybader_tpu_torch import grid
     from pybader_tpu_torch.ops import pointer, reductions, stencil
 
+    n = rho.numel()
     w = tuple(grid.distance_weights(LATTICE, shape))
+    # 26 candidates of (rho_n - rho_p) * w + rho_p: 78 f64 operations
     codes = compare(
         "ongrid_step_codes", res,
         lambda: stencil.ongrid_step_codes_cuda(rho, w),
-        lambda: stencil.ongrid_step_codes_plain(rho, w), equal, phase)
+        lambda: stencil.ongrid_step_codes_plain(rho, w), equal, phase,
+        bound(9 * n, 78 * n))
     parent = stencil.parent_from_step_codes(codes)
     roots = compare(
         "resolve_roots", res,
         lambda: pointer.resolve_roots_cuda(parent),
-        lambda: pointer.resolve_roots_plain(parent), equal, phase)
+        lambda: pointer.resolve_roots_plain(parent), equal, phase,
+        bound(8 * n))
     is_max = codes == 13
     n_max = int(is_max.sum())
     rank = torch.cumsum(is_max.reshape(-1), 0) - 1
@@ -187,22 +250,27 @@ def partition_kernels(rho, shape, res, phase="kernel"):
         "min_pair", res,
         lambda: reductions.min_pair_cuda(labels_mo, is_max, n_max),
         lambda: reductions.min_pair_plain(labels_mo, is_max, n_max), equal,
-        phase)
+        phase, bound(5 * n + 8 * n_max))
     order = torch.argsort(first.long(), stable=True)
     table = torch.argsort(order, stable=True).to(torch.int32)
     labels = compare(
         "remap_labels", res,
         lambda: reductions.remap_labels_cuda(labels_mo, table, n_max),
         lambda: reductions.remap_labels_plain(labels_mo, table, n_max),
-        equal, phase)
+        equal, phase, bound(8 * n + 4 * n_max),
+        library=lambda: torch.index_select(table, 0, labels_mo.reshape(-1)))
+    # every label is >= 0 here, so bincount computes the same sums
     compare("charge_volume", res,
             lambda: reductions.charge_volume_cuda(rho, labels, n_max),
             lambda: reductions.charge_volume_plain(rho, labels, n_max),
-            close(1e-9), phase)
+            close(1e-9), phase, bound(12 * n + 16 * n_max, n),
+            library=lambda: torch.bincount(
+                labels.reshape(-1), weights=rho.reshape(-1),
+                minlength=n_max))
     _, ny, nz = shape
     mf = max_pos[order].long()
     maxima = torch.stack([mf // (ny * nz), (mf // nz) % ny, mf % nz], 1)
-    return labels, maxima, n_max
+    return labels, maxima, n_max, codes
 
 
 def kernel_phase(rho, atoms_cart, shape):
@@ -212,7 +280,7 @@ def kernel_phase(rho, atoms_cart, shape):
     from pybader_tpu_torch.ops import edges, reductions
 
     res = {}
-    labels, maxima, n_max = partition_kernels(rho, shape, res)
+    labels, maxima, n_max, codes = partition_kernels(rho, shape, res)
     lat = torch.as_tensor(LATTICE, device=rho.device)
     atoms_t = torch.as_tensor(atoms_cart, device=rho.device)
     maxima_cart = (maxima.double() / torch.as_tensor(
@@ -222,14 +290,78 @@ def kernel_phase(rho, atoms_cart, shape):
         labels, atom_idx.to(torch.int32), n_max)
     edge_mask = edges.edge_find(rho, atom_labels) == -2
     n_atoms = atoms_t.shape[0]
+    n_edge = int(edge_mask.sum())
+    # per edge voxel and image: 3 subtractions, 3 products, 2 sums
     compare("surface_min_d2", res,
             lambda: atoms_ops.surface_min_d2_cuda(
                 atom_labels, edge_mask, lat, atoms_t, n_atoms),
             lambda: atoms_ops.surface_min_d2_plain(
                 atom_labels, edge_mask, lat, atoms_t, n_atoms),
-            close(1e-12))
-    say("kernel", f"{n_max} maxima, {int(edge_mask.sum())} edge voxels")
-    return res, labels, atom_labels
+            close(1e-12), "kernel",
+            bound(5 * rho.numel() + 32 * n_atoms, 27 * 8 * n_edge))
+    say("kernel", f"{n_max} maxima, {n_edge} edge voxels")
+    return res, labels, atom_labels, codes
+
+
+def walk_cost(rows, starts, shape, cap, known=None):
+    """The walk's bound from this run's data: the rows (and known bytes)
+    its lanes touch, the starts read and pos/done written, and 15 f64
+    operations a lane-step.  The plain version counts both."""
+    from pybader_tpu_torch.ops import neargrid
+
+    st = {}
+    neargrid.neargrid_walk_plain(rows, starts, shape, cap, known, stats=st)
+    per_row = 32 + (0 if known is None else 1)
+    cost = bound(st["rows_touched"] * per_row + 9 * starts.numel(),
+                 15 * st["lane_steps"])
+    return cost, st
+
+
+def neargrid_phase(rho, shape, codes, labels, res):
+    """The four refinement kernels against their plain versions, chained
+    along refinement's first iteration on the ongrid labels."""
+    from pybader_tpu_torch import grid, pipeline
+    from pybader_tpu_torch.ops import edges, neargrid, pointer, stencil
+
+    n = rho.numel()
+    tg = torch.as_tensor(grid.t_grad(LATTICE, shape), device=rho.device)
+    is_max = codes == 13
+    known = compare(
+        "edge_find", res, lambda: edges.edge_find_cuda(labels, is_max),
+        lambda: edges.edge_find_plain(rho, labels, is_max), equal,
+        "neargrid", bound(6 * n))
+    for strict in (False, True):
+        # 6 compares, 3 differences, 3 halvings, 9 products, 9 sums,
+        # 3 abs, 2 max, 3 divisions: 38 f64 operations
+        rows = compare(
+            "neargrid_rows", res,
+            lambda: neargrid.neargrid_rows_cuda(rho, codes, tg, strict),
+            lambda: neargrid.neargrid_rows_plain(rho, codes, tg, strict),
+            bits_equal, "neargrid", bound((8 + 1 + 32) * n, 38 * n))
+        say("neargrid", f"rows bit-identical with strict_grad={strict}")
+    starts = torch.nonzero(known.reshape(-1) == -2).reshape(-1).to(
+        torch.int32)
+    cap = neargrid.refine_cap(shape)
+    cost, st = walk_cost(rows, starts, shape, cap, known)
+    pos, done = compare(
+        "neargrid_walk", res,
+        lambda: neargrid.neargrid_walk_cuda(rows, starts, shape, cap, known),
+        lambda: neargrid.neargrid_walk_plain(rows, starts, shape, cap, known),
+        equal, "neargrid", cost)
+    n_capped = int((~done).sum())
+    if n_capped:
+        roots = pointer.resolve_roots_plain(
+            stencil.parent_from_step_codes(codes)).reshape(-1)
+        pos = torch.where(done, pos, roots[pos.long()])
+    labels1, known1 = labels.clone(), known.clone()
+    changed = pipeline._apply_walk_results(labels1, known1, starts, pos)
+    compare("edge_check", res,
+            lambda: edges.edge_check_cuda(known1, labels1, is_max),
+            lambda: edges.edge_check_plain(known1, labels1, is_max), equal,
+            "neargrid", bound(7 * n))
+    say("neargrid", f"iteration 1: {starts.numel()} edges walked "
+        f"({st['lane_steps']} lane-steps, {st['rows_touched']} rows "
+        f"touched), {changed} changed, {n_capped} at the cap {cap}")
 
 
 def noise_phase(shape, device="cuda"):
@@ -245,7 +377,8 @@ def noise_phase(shape, device="cuda"):
     gen = torch.Generator(device=device).manual_seed(2)
     rho = torch.rand(shape, dtype=torch.float64, device=device,
                      generator=gen)
-    labels_p, maxima_p, n_max = partition_kernels(rho, shape, {}, "noise")
+    labels_p, maxima_p, n_max, _ = partition_kernels(rho, shape, {},
+                                                      "noise")
     vox = grid.voxel_volume(LATTICE, shape)
     _cuda.launches.clear()
     labels, maxima = pipeline.partition_ongrid(
@@ -253,7 +386,7 @@ def noise_phase(shape, device="cuda"):
     charge, volume = reductions.charge_volume_sum(rho, labels, vox, n_max)
     torch.cuda.synchronize()
     launches = dict(_cuda.launches)
-    missing = [k for k in KERNELS
+    missing = [k for k in ONGRID_KERNELS
                if k != "surface_min_d2" and launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"many-label partition launched no {missing}")
@@ -270,52 +403,78 @@ def noise_phase(shape, device="cuda"):
 
 
 def cli_phase(tmp):
+    """The CLI on the fixture: -m ongrid (charge conserved) and the default
+    profile (golden per-atom charges, volumes and maxima).  Each run writes
+    its -o dat text, then a pickle whose results() must equal it."""
     from pybader_tpu_torch import entry_points
     from pybader_tpu_torch.grid import voxel_volume
 
+    with open(GOLDEN) as f:
+        golden = json.load(f)
     # the CLI writes its config profile file; keep it in the temp dir
     entry_points.__config__ = os.path.join(tmp, "config.ini")
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
-        t0 = time.perf_counter()
-        entry_points.bader([FIXTURE, "-m", "ongrid", "-o", "dat"])
-        t_dat = time.perf_counter() - t0
-        entry_points.bader([FIXTURE, "-m", "ongrid"])  # pickle output
-        with open("bader.p", "rb") as f:
-            b = pickle.load(f)
-        with open("CHGCAR_fixture-atoms.dat") as f:
-            atoms_dat = f.read()
+        for flags in (["-m", "ongrid"], []):
+            t0 = time.perf_counter()
+            entry_points.bader([FIXTURE, *flags, "-o", "dat"])
+            t_dat = time.perf_counter() - t0
+            entry_points.bader([FIXTURE, *flags])  # pickle output
+            with open("bader.p", "rb") as f:
+                b = pickle.load(f)
+            with open("CHGCAR_fixture-atoms.dat") as f:
+                atoms_dat = f.read()
+            if atoms_dat != b.results():
+                raise AssertionError("CLI -o dat text differs from the "
+                                     "results")
+            total = float(b.density.sum()) * voxel_volume(
+                b.lattice, b.density.shape)
+            np.testing.assert_allclose(float(np.sum(b.atoms_charge)), total,
+                                       rtol=1e-9)
+            if not flags:
+                golden_check(b, golden)
+            say("cli", f"{' '.join(flags) or 'default profile'} on fixture "
+                f"{b.density.shape}: {len(b.bader_charge)} basins, atoms "
+                f"charge {float(np.sum(b.atoms_charge))!r} vs {total!r}, "
+                f"-o dat run {t_dat:.3f} s")
     finally:
         os.chdir(cwd)
-    if atoms_dat != b.results():
-        raise AssertionError("CLI -o dat text differs from the results")
-    total = float(b.density.sum()) * voxel_volume(b.lattice, b.density.shape)
-    np.testing.assert_allclose(float(np.sum(b.atoms_charge)), total,
-                               rtol=1e-9)
-    say("cli", f"fixture {b.density.shape}: {len(b.bader_charge)} basins, "
-        f"atoms charge {float(np.sum(b.atoms_charge))!r} vs "
-        f"{total!r}, -o dat run {t_dat:.3f} s")
 
 
-def blob_bader(density, atoms_cart, tmp):
-    """An ongrid ``Bader`` on the card for a host density; its ``dat``
-    output goes to ``tmp``."""
+def golden_check(b, golden):
+    """The fixture's golden file (tests/test_chgcar_fixture.py): per-atom
+    charges and volumes to 1e-6 and the same set of maxima."""
+    assert (b.method, tuple(b.refine_mode)) == ("neargrid", ("changed", 2))
+    np.testing.assert_allclose(b.atoms_charge, golden["atoms_charge"],
+                               atol=1e-6)
+    np.testing.assert_allclose(b.atoms_volume, golden["atoms_volume"],
+                               atol=1e-6)
+    shape = np.array(b.density.shape)
+    vox = np.rint(b.bader_maxima_fractional * shape
+                  - b.voxel_offset_fractional).astype(int) % shape
+    if {tuple(m) for m in vox} != {tuple(m) for m in golden["maxima"]}:
+        raise AssertionError("default-profile maxima differ from golden")
+
+
+def blob_bader(density, atoms_cart, tmp, **config):
+    """A ``Bader`` on the card for a host density; its ``dat`` output goes
+    to ``tmp``.  ``config``: profile keys over the default profile."""
     from pybader_tpu_torch.interface import Bader
 
     file_info = {"filename": f"blobs{density.shape[0]}",
                  "prefix": tmp + os.sep, "file_type": "VASP",
                  "voxel_offset": np.zeros(3)}
     return Bader({"charge": density}, LATTICE, atoms_cart, file_info,
-                 method="ongrid", refine_method="ongrid", output="dat",
-                 prefix=tmp + os.sep, device="cuda")
+                 output="dat", prefix=tmp + os.sep, device=DEVICE, **config)
 
 
 def e2e_phase(rho, atoms_cart, shape, tmp, plain_labels, plain_atom_labels):
     from pybader_tpu_torch.ops import _cuda
 
     density = rho.cpu().numpy()
-    b = blob_bader(density, atoms_cart, tmp)
+    b = blob_bader(density, atoms_cart, tmp, method="ongrid",
+                   refine_method="ongrid")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.launches.clear()
@@ -324,28 +483,155 @@ def e2e_phase(rho, atoms_cart, shape, tmp, plain_labels, plain_atom_labels):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(_cuda.launches)
-    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
+    missing = [k for k in ONGRID_KERNELS if launches.get(k, 0) <= 0]
     if missing:
-        raise AssertionError(f"main path launched no {missing}")
-    total = float(density.sum()) * b.voxel_volume
-    np.testing.assert_allclose(float(np.sum(b.atoms_charge)), total,
-                               rtol=1e-9)
-    np.testing.assert_allclose(float(np.sum(b.bader_charge)), total,
-                               rtol=1e-9)
+        raise AssertionError(f"ongrid path launched no {missing}")
+    check_charge(b, density)
     if not np.array_equal(b.bader_volumes, plain_labels.cpu().numpy()):
         raise AssertionError("Bader volumes differ from the plain pipeline")
     if not np.array_equal(b.atoms_volumes, plain_atom_labels.cpu().numpy()):
         raise AssertionError("atom volumes differ from the plain pipeline")
+    peak = torch.cuda.max_memory_allocated()
+    say("e2e", f"{SIZE}^3 Bader(method='ongrid')(): {seconds:.3f} s, "
+        f"{len(b.bader_charge)} basins, peak device memory {peak} bytes")
+    say("e2e", "stage seconds " + json.dumps(b.stage_seconds))
+    say("e2e", "launches " + json.dumps(launches))
+
+
+def check_charge(b, density):
+    """Charge conserved to rtol 1e-9 and finite, non-negative distances."""
+    total = float(density.sum()) * b.voxel_volume
+    np.testing.assert_allclose(float(np.sum(b.atoms_charge)), total,
+                               rtol=1e-9)
+    if hasattr(b, "bader_charge"):
+        np.testing.assert_allclose(float(np.sum(b.bader_charge)), total,
+                                   rtol=1e-9)
     if not (np.all(np.isfinite(b.atoms_surface_distance))
             and np.all(b.atoms_surface_distance >= 0)):
         raise AssertionError("surface distances not finite")
+    say("charge", f"{float(np.sum(b.atoms_charge))!r} vs {total!r}")
+
+
+@contextmanager
+def refine_iterations(record):
+    """Hand every refine_labels call a stats dict and keep its per-iteration
+    (edges, changed, cap fires) in ``record`` (the hybrid's internal call
+    and the user's)."""
+    from pybader_tpu_torch import pipeline
+
+    real = pipeline.refine_labels
+
+    def counted(*args, **kwargs):
+        stats = kwargs.get("stats")
+        if stats is None:
+            stats = kwargs["stats"] = {}
+        out = real(*args, **kwargs)
+        record.append([list(it[:3]) for it in stats.get("iterations", [])])
+        return out
+
+    with mock.patch.object(pipeline, "refine_labels", counted):
+        yield
+
+
+def default_phase(rho, atoms_cart, tmp):
+    """The default profile at 384^3 through the kernels, then the same call
+    with every op on its plain version on the card."""
+    from pybader_tpu_torch.ops import _cuda
+
+    density = rho.cpu().numpy()
+    b = blob_bader(density, atoms_cart, tmp)
+    assert (b.method, b.refine_method) == ("neargrid", "neargrid")
+    assert tuple(b.refine_mode) == ("changed", 2) and not b.speed_flag
+    iterations = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.launches.clear()
+    t0 = time.perf_counter()
+    with refine_iterations(iterations):
+        b()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
     peak = torch.cuda.max_memory_allocated()
-    say("e2e", f"{SIZE}^3 Bader(method='ongrid')(): {seconds:.3f} s, "
-        f"{len(b.bader_charge)} basins, charge {float(np.sum(b.atoms_charge))!r}"
-        f" vs {total!r}, peak device memory {peak} bytes")
-    say("e2e", "stage seconds " + json.dumps(b.stage_seconds))
-    say("e2e", "launches " + json.dumps(launches))
+    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"default path launched no {missing}")
+    check_charge(b, density)
+    say("default", f"{SIZE}^3 Bader()() default profile: {seconds:.3f} s, "
+        f"{len(b.bader_charge)} basins, peak device memory {peak} bytes")
+    say("default", "stage seconds " + json.dumps(b.stage_seconds))
+    say("default", "refine (edges, changed, cap fires) per iteration, "
+        "internal then user: " + json.dumps(iterations))
+    say("default", "launches " + json.dumps(launches))
+    bp = blob_bader(density, atoms_cart, tmp)
+    t0 = time.perf_counter()
+    with mock.patch.object(_cuda, "on_cuda", lambda t: False):
+        bp()
+    torch.cuda.synchronize()
+    for key in ("bader_volumes", "atoms_volumes", "bader_atoms"):
+        if not np.array_equal(getattr(b, key), getattr(bp, key)):
+            raise AssertionError(f"{key} differ from the plain pipeline")
+    if not np.array_equal(b.bader_maxima_fractional,
+                          bp.bader_maxima_fractional):
+        raise AssertionError("maxima differ from the plain pipeline")
+    say("default", f"volume maps and maxima equal the plain pipeline on the "
+        f"card ({time.perf_counter() - t0:.3f} s)")
     return launches
+
+
+def full_phase():
+    """At 256^3: the walk kernel on random starts with the initial cap,
+    then the full-trajectory partition through the kernels."""
+    from pybader_tpu_torch import grid, pipeline
+    from pybader_tpu_torch.ops import _cuda, neargrid, reductions, stencil
+
+    shape = (FULL_SIZE,) * 3
+    rho, _ = blob_field(shape, DEVICE)
+    n = rho.numel()
+    w = tuple(grid.distance_weights(LATTICE, shape))
+    tg = torch.as_tensor(grid.t_grad(LATTICE, shape), device=DEVICE)
+    codes = stencil.ongrid_step_codes_cuda(rho, w)
+    rows = neargrid.neargrid_rows_cuda(rho, codes, tg, False)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    starts = torch.randint(0, n, (WALK_STARTS,), generator=gen,
+                           dtype=torch.int32, device=DEVICE)
+    cap = neargrid.initial_cap(shape)
+    cost, st = walk_cost(rows, starts, shape, cap)
+    walk = {}
+    _, done = compare(
+        "neargrid_walk", walk,
+        lambda: neargrid.neargrid_walk_cuda(rows, starts, shape, cap),
+        lambda: neargrid.neargrid_walk_plain(rows, starts, shape, cap),
+        equal, "full", cost)
+    say("full", f"{WALK_STARTS} random starts at {FULL_SIZE}^3: "
+        f"{st['lane_steps']} lane-steps, {st['rows_touched']} rows touched, "
+        f"{int((~done).sum())} at the cap {cap}")
+    del rows
+    _cuda.launches.clear()
+    stats = {}
+    t0 = time.perf_counter()
+    labels, maxima = pipeline.partition_neargrid(
+        rho, None, w, tg, full_trajectories=True, stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    used = ("ongrid_step_codes", "neargrid_rows", "neargrid_walk",
+            "min_pair", "remap_labels")
+    missing = [k for k in used if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"full-trajectory partition launched no "
+                             f"{missing}")
+    vox = grid.voxel_volume(LATTICE, shape)
+    charge, _ = reductions.charge_volume_sum(rho, labels, vox,
+                                             len(maxima))
+    total = float(rho.sum()) * vox
+    np.testing.assert_allclose(float(charge.sum()), total, rtol=1e-9)
+    if int((labels < 0).sum()):
+        raise AssertionError("full-trajectory labels left a voxel unlabelled")
+    say("full", f"{FULL_SIZE}^3 partition_neargrid(full_trajectories=True): "
+        f"{seconds:.3f} s, {len(maxima)} maxima, {stats['cap_fires']} cap "
+        f"fires, charge {float(charge.sum())!r} vs {total!r}, launches "
+        f"{json.dumps(launches)}")
 
 
 def main():
@@ -359,17 +645,23 @@ def main():
         f"pybader_tpu_torch/_build/build.log)")
     shape = (SIZE, SIZE, SIZE)
     t0 = time.perf_counter()
-    rho, atoms_cart = blob_field(shape, "cuda")
+    rho, atoms_cart = blob_field(shape, DEVICE)
     torch.cuda.synchronize()
     say("field", f"{SIZE}^3 f64 density on the card in "
         f"{time.perf_counter() - t0:.2f} s")
-    results, plain_labels, plain_atom_labels = kernel_phase(
+    results, plain_labels, plain_atom_labels, codes = kernel_phase(
         rho, atoms_cart, shape)
-    noise_phase(shape)
+    neargrid_phase(rho, shape, codes, plain_labels, results)
+    del codes
+    noise_phase(shape, DEVICE)
     with tempfile.TemporaryDirectory() as tmp:
         cli_phase(tmp)
-        launches = e2e_phase(rho, atoms_cart, shape, tmp, plain_labels,
-                             plain_atom_labels)
+        e2e_phase(rho, atoms_cart, shape, tmp, plain_labels,
+                  plain_atom_labels)
+        del plain_labels, plain_atom_labels
+        launches = default_phase(rho, atoms_cart, tmp)
+    del rho
+    full_phase()
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
               "launches": launches[k], **results[k]}
              for k, (src, rep) in KERNELS.items()]

@@ -1,0 +1,213 @@
+// Neargrid walk rows and the trajectory walker.
+//
+// Replace the XLA walk of pybader_tpu/ops/neargrid.py: the row build
+// precompute_rows (:484, with _gd_components :64, _denom_flags :82 and
+// _pack_parent :523) and the exact-row walk _walk_segment_packed (:647) as
+// driven by walk (:907).  The JAX package also walks quantised 8-byte rows
+// under an exactness screen, in compacted buckets and bounded segments
+// (walk_drain); those are TPU gather-rate machinery whose results equal the
+// exact-row walk, so only the exact walk is ported.
+//
+// Row layout, 32 bytes, one per voxel, so a walker step reads one sector:
+//     double g[3]   inf-normalised transformed gradient
+//     int32 parent  flat index of the ongrid ascent target
+//     uint8 flags   kOngrid (|gd| < 1e-14) | kMax (parent == self)
+//     3 bytes zero
+// The parent is a full int32 column (the JAX packed word kept 28 bits).
+//
+// Arithmetic: every sum and product is rounded on its own (__dadd_rn,
+// __dmul_rn, and the library builds with -fmad=false), so the rows equal
+// the plain PyTorch version bit for bit.  XLA's CPU backend fuses some of
+// the gradient multiply-adds, so the JAX rows differ from these by a few
+// ulp; the walker itself is exact on whatever rows it is given.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kOngrid = 1;
+constexpr int kMax = 2;
+
+__device__ __forceinline__ int wrap(int v, int n) {
+    v %= n;
+    return v < 0 ? v + n : v;
+}
+
+// ----------------------------------------------------------------- rows
+// Bound: device memory.  A voxel reads its density, six axis neighbours
+// (L1/L2 hits shared with the neighbouring threads) and its step code, and
+// writes a 32-byte row: 8 + 1 + 32 bytes a voxel from HBM.  One thread per
+// voxel, z fastest across a warp, so the loads and the row stores coalesce.
+__global__ void rows_kernel(const double* __restrict__ rho,
+                            const unsigned char* __restrict__ codes,
+                            const double* __restrict__ t_grad,
+                            double2* __restrict__ rows, int nx, int ny, int nz,
+                            int strict) {
+    __shared__ double t[9];
+    if (threadIdx.x < 9) t[threadIdx.x] = t_grad[threadIdx.x];
+    __syncthreads();
+    const long long n = static_cast<long long>(nx) * ny * nz;
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         i < n; i += stride) {
+        int x, y, z;
+        pb::unflatten(i, ny, nz, x, y, z);
+        const double rp = rho[i];
+        const long long up[3] = {
+            (static_cast<long long>(wrap(x + 1, nx)) * ny + y) * nz + z,
+            (static_cast<long long>(x) * ny + wrap(y + 1, ny)) * nz + z,
+            (static_cast<long long>(x) * ny + y) * nz + wrap(z + 1, nz)};
+        const long long dn[3] = {
+            (static_cast<long long>(wrap(x - 1, nx)) * ny + y) * nz + z,
+            (static_cast<long long>(x) * ny + wrap(y - 1, ny)) * nz + z,
+            (static_cast<long long>(x) * ny + y) * nz + wrap(z - 1, nz)};
+        double grad[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+            const double ru = rho[up[j]];
+            const double rd = rho[dn[j]];
+            const bool flat = strict ? (ru < rp && rd < rp)
+                                     : (ru <= rp && rd <= rp);
+            grad[j] = flat ? 0.0 : __dmul_rn(__dsub_rn(ru, rd), 0.5);
+        }
+        // gd_i = ((0 + T[i,0] g0) + T[i,1] g1) + T[i,2] g2, JAX's order
+        double gd[3];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+            double acc = 0.0;
+#pragma unroll
+            for (int j = 0; j < 3; ++j)
+                acc = __dadd_rn(acc, __dmul_rn(t[r * 3 + j], grad[j]));
+            gd[r] = acc;
+        }
+        const double mg = fmax(fmax(fabs(gd[0]), fabs(gd[1])), fabs(gd[2]));
+        const double denom = mg > 0.0 ? mg : 1.0;
+        const int code = codes[i];
+        const int px = wrap(x + code / 9 - 1, nx);
+        const int py = wrap(y + (code / 3) % 3 - 1, ny);
+        const int pz = wrap(z + code % 3 - 1, nz);
+        const long long parent =
+            (static_cast<long long>(px) * ny + py) * nz + pz;
+        const long long flags =
+            (mg < 1e-14 ? kOngrid : 0) | (parent == i ? kMax : 0);
+        const long long word =
+            static_cast<long long>(static_cast<unsigned int>(parent)) |
+            (flags << 32);
+        rows[2 * i] = make_double2(__ddiv_rn(gd[0], denom),
+                                   __ddiv_rn(gd[1], denom));
+        rows[2 * i + 1] = make_double2(__ddiv_rn(gd[2], denom),
+                                       __longlong_as_double(word));
+    }
+}
+
+// ----------------------------------------------------------------- walk
+__device__ __forceinline__ int round_away(double v) {
+    return static_cast<int>(trunc(__dadd_rn(v, v > 0.0 ? 0.5 : -0.5)));
+}
+
+// One thread per lane walks its trajectory to termination or the cap, with
+// pos, prev, the 3-entry history and dr in registers; no host round trip
+// per step.  Per step: fetch the row at pos (stop there if it is a maximum
+// or, when known is given, a known == 2 voxel); step by round_away(g) plus
+// the rounded sub-voxel remainder dr; an ongrid flag, or a revisit of pos,
+// prev or the history, steps to the ongrid parent and resets dr.  After
+// max_steps steps one more fetch decides done.
+//
+// Bound: the latency of the dependent row gathers.  Each step's address
+// comes from the previous step's row, so a lane reads one 32-byte sector
+// (plus one byte of known) per step and waits for it; throughput comes
+// only from the number of lanes in flight, so the launch gives every lane
+// its own thread.  Lanes of a warp diverge in position and length: the
+// gathers do not coalesce and a warp runs as long as its longest lane.
+__global__ void walk_kernel(const double2* __restrict__ rows,
+                            const int* __restrict__ starts,
+                            const signed char* __restrict__ known,
+                            int* __restrict__ pos_out,
+                            unsigned char* __restrict__ done_out,
+                            long long k, int nx, int ny, int nz,
+                            int max_steps) {
+    const long long lane =
+        static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (lane >= k) return;
+    const int nyz = ny * nz;
+    int pos = starts[lane];
+    int prev = -1, h0 = -1, h1 = -1, h2 = -1;
+    double d0 = 0.0, d1 = 0.0, d2 = 0.0;
+    bool done = false;
+    for (int step = 0;; ++step) {
+        const double2 a = __ldg(&rows[2 * static_cast<long long>(pos)]);
+        const double2 b = __ldg(&rows[2 * static_cast<long long>(pos) + 1]);
+        const long long word = __double_as_longlong(b.y);
+        const int parent = static_cast<int>(word & 0xffffffffLL);
+        const int flags = static_cast<int>((word >> 32) & 0xff);
+        if ((flags & kMax) || (known != nullptr && known[pos] == 2)) {
+            done = true;
+            break;
+        }
+        if (step == max_steps) break;
+        const int x = pos / nyz;
+        const int rem = pos - x * nyz;
+        const int y = rem / nz;
+        const int z = rem - y * nz;
+        const int i0 = round_away(a.x), i1 = round_away(a.y),
+                  i2 = round_away(b.x);
+        const double e0 = __dsub_rn(__dadd_rn(d0, a.x), i0);
+        const double e1 = __dsub_rn(__dadd_rn(d1, a.y), i1);
+        const double e2 = __dsub_rn(__dadd_rn(d2, b.x), i2);
+        const int c0 = round_away(e0), c1 = round_away(e1),
+                  c2 = round_away(e2);
+        int nxt = (wrap(x + i0 + c0, nx) * ny + wrap(y + i1 + c1, ny)) * nz +
+                  wrap(z + i2 + c2, nz);
+        const bool ongrid = (flags & kOngrid) != 0;
+        if (ongrid) nxt = parent;
+        const bool revisit = nxt == pos || nxt == prev || nxt == h0 ||
+                             nxt == h1 || nxt == h2;
+        if (revisit) nxt = parent;
+        if (ongrid || revisit) {
+            d0 = d1 = d2 = 0.0;
+        } else {
+            d0 = __dsub_rn(e0, c0);
+            d1 = __dsub_rn(e1, c1);
+            d2 = __dsub_rn(e2, c2);
+        }
+        h2 = h1;
+        h1 = h0;
+        h0 = prev;
+        prev = pos;
+        pos = nxt;
+    }
+    pos_out[lane] = pos;
+    done_out[lane] = done ? 1 : 0;
+}
+
+}  // namespace
+
+PB_EXPORT int pb_neargrid_rows(void* rho, void* codes, void* t_grad,
+                               void* rows, int nx, int ny, int nz, int strict,
+                               int device, void* stream) {
+    cudaSetDevice(device);
+    const long long n = static_cast<long long>(nx) * ny * nz;
+    rows_kernel<<<pb::blocks_for(n, device), pb::kThreads, 0,
+                  pb::as_stream(stream)>>>(
+        static_cast<const double*>(rho),
+        static_cast<const unsigned char*>(codes),
+        static_cast<const double*>(t_grad), static_cast<double2*>(rows), nx,
+        ny, nz, strict);
+    return static_cast<int>(cudaGetLastError());
+}
+
+PB_EXPORT int pb_neargrid_walk(void* rows, void* starts, void* known,
+                               void* pos_out, void* done_out, long long k,
+                               int nx, int ny, int nz, int max_steps,
+                               int device, void* stream) {
+    cudaSetDevice(device);
+    if (k <= 0) return static_cast<int>(cudaGetLastError());
+    const long long blocks = (k + pb::kThreads - 1) / pb::kThreads;
+    walk_kernel<<<static_cast<unsigned int>(blocks), pb::kThreads, 0,
+                  pb::as_stream(stream)>>>(
+        static_cast<const double2*>(rows), static_cast<const int*>(starts),
+        static_cast<const signed char*>(known), static_cast<int*>(pos_out),
+        static_cast<unsigned char*>(done_out), k, nx, ny, nz, max_steps);
+    return static_cast<int>(cudaGetLastError());
+}

@@ -16,8 +16,9 @@ __long_desc__ = """Grid-based Bader charge analysis based on methods presented
 in W. Tang, E. Sanville, and G. Henkelman, 'A grid-based Bader analysis
 algorithm without lattice bias', J. Phys.: Condens. Matter 21, 084204 (2009).
 PyTorch port of pybader_tpu for NVIDIA Hopper GPUs: the ascent stencil, root
-resolution and per-label reductions are hand-written CUDA kernels; every
-kernel keeps a plain PyTorch version that CPU tensors run.
+resolution, per-label reductions, edge classification and the neargrid
+trajectory walker are hand-written CUDA kernels; every kernel keeps a plain
+PyTorch version that CPU tensors run.
 """
 
 if platform == "win32":  # pragma: no cover - platform specific

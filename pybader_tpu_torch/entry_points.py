@@ -2,7 +2,7 @@
 
 Port of :func:`pybader_tpu.entry_points.bader`: the same flags and
 config-profile handling, plus ``--device``.  Run it as
-``python -m pybader_tpu_torch.entry_points CHGCAR -m ongrid``.  The JAX
+``python -m pybader_tpu_torch.entry_points CHGCAR``.  The JAX
 CLI warms a compilation cache on its first run; the counterpart here is the
 kernel build, which happens at the first CUDA launch.  ``bader-read`` is
 not ported yet.
@@ -70,8 +70,8 @@ def bader(argv=None):
                         help="Path to file containing a density")
     parser.add_argument('-m', '--method', nargs=1,
                         choices=pipeline.METHODS,
-                        help="Bader partitioning method (only ongrid is "
-                             "ported so far)")
+                        help="Bader partitioning method (refinement "
+                             "follows it)")
     parser.add_argument('-r', '--refine', nargs='+',
                         help="Refinement mode: all | changed [iterations]")
     parser.add_argument('-ref', '--reference', nargs='+',

@@ -6,9 +6,8 @@ text results and pickle persistence.  Results are numpy arrays, as in the
 JAX package; each stage moves its inputs to ``device`` ("cuda" by default,
 "cpu" for the plain PyTorch versions) and brings its outputs back.
 
-Not ported yet (ROADMAP Queue 1): the neargrid method and neargrid
-refinement (they raise ``NotImplementedError``), the multi-device mesh,
-and file types other than VASP.
+Not ported yet (ROADMAP Queue 1): the multi-device mesh and file types
+other than VASP.
 """
 from __future__ import annotations
 
@@ -492,7 +491,15 @@ class Bader:
                     self._dev(self.reference, torch.float64), vacuum,
                     weights, progress=tick)
             elif self.method == 'neargrid':
-                labels, maxima = pipeline.partition_neargrid()
+                # the hybrid's internal refinement hands its continuation
+                # state to refine_volumes, so a following 'changed' refine
+                # chains on instead of re-walking the full edge set
+                carry = {}
+                labels, maxima = pipeline.partition_neargrid(
+                    self._dev(self.reference, torch.float64), vacuum,
+                    weights, self._dev(self.T_grad, torch.float64),
+                    progress=tick, carry_out=carry)
+                self._refine_carry = carry if carry else None
             else:
                 raise ValueError(f"Unknown method: {self.method}")
             dtype = dtype_calc(-max(int(maxima.shape[0]), 1))
@@ -517,14 +524,28 @@ class Bader:
 
     def refine_volumes(self, volumes):
         """Refine edges of the given label map in place."""
+        # continuation state from the hybrid neargrid partition applies
+        # only to the label map it was computed against (bader_volumes);
+        # the speed path refines the atom-relabelled map, whose edge
+        # structure differs, and starts fresh.  Single-use either way.
+        carry = getattr(self, '_refine_carry', None)
+        self._refine_carry = None
+        if volumes is not getattr(self, 'bader_volumes', None):
+            carry = None
         with _stage("Refining volume edges", multiline=True,
                     record=self.stage_seconds) as tick:
+            if not pipeline.refinement_runs(self.refine_method,
+                                            self.refine_mode):
+                return  # nothing to upload for a no-op
             refined, _ = pipeline.refine_labels(
-                self.refine_method, self.refine_mode, self.reference,
-                volumes, tuple(self.distance_weights), self.T_grad,
-                progress=tick,
+                self.refine_method, self.refine_mode,
+                self._dev(self.reference, torch.float64),
+                self._dev(volumes, torch.int32),
+                tuple(self.distance_weights),
+                self._dev(self.T_grad, torch.float64),
+                progress=tick, carry_in=carry,
             )
-            np.copyto(volumes, np.asarray(refined).astype(volumes.dtype))
+            np.copyto(volumes, refined.cpu().numpy().astype(volumes.dtype))
 
     def sum_volumes(self, bader=False):
         """Integrate charge/spin/volume per Bader volume or per atom."""

@@ -1,7 +1,8 @@
 """Build, load and count the hand-written CUDA kernels (``csrc/*.cu``).
 
-The kernels compile at first use with ``nvcc`` into one shared library with
-a plain C interface, loaded with ctypes.  The library is named by a hash
+The kernels compile at first use with ``nvcc`` (one process per source,
+all started together, then one link) into a shared library with a plain C
+interface, loaded with ctypes.  The library is named by a hash
 of the sources and the flags, under ``pybader_tpu_torch/_build/``, so a
 source edit rebuilds and a stale binary is never loaded.  Importing this
 module builds and loads nothing: CPU-only hosts (the test suite) never
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from collections import Counter
 
@@ -28,13 +30,13 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("stencil.cu", "flood.cu", "reduce.cu")
+SOURCES = ("stencil.cu", "flood.cu", "reduce.cu", "edges.cu", "neargrid.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # exact f64: no contraction of a*b+c into one rounding (stencil.cu)
     "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Kernel launches by wrapper name, counted where each wrapper launches.
@@ -49,6 +51,10 @@ _ENTRIES = {
     "pb_remap": (_P, _P, _P, _L, _I, _I, _P),
     "pb_charge_volume": (_P, _P, _P, _P, _L, _I, _I, _P),
     "pb_surface_min_d2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pb_edge_find": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "pb_edge_check": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "pb_neargrid_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pb_neargrid_walk": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -74,23 +80,43 @@ def _lib_path() -> str:
 
 def build() -> str:
     """Compile the kernels if this source revision has no library yet;
-    returns the library path.  nvcc's output (ptxas register and spill
-    report included) goes to ``_build/build.log``."""
+    returns the library path.  Each source compiles in its own nvcc
+    process, all at once; nvcc's output (ptxas register and spill report
+    included) goes to ``_build/build.log``."""
     global build_seconds
     path = _lib_path()
     if os.path.isfile(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as obj_dir:
+        objs = [os.path.join(obj_dir, s + ".o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", CSRC, "-c",
+                 os.path.join(CSRC, s), "-o", o]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        failed = []
+        for c, p in zip(cmds, procs):
+            out = p.communicate()[0]
+            log.append(" ".join(c) + "\n" + out)
+            if p.returncode != 0:
+                failed.append(f"{c[-3]} (exit {p.returncode}):\n{out[-4000:]}")
+        if not failed:
+            link = [nvcc, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link (exit {proc.returncode}):\n"
+                              f"{proc.stderr[-4000:]}")
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, path)  # atomic when several processes build at once
     build_seconds = time.perf_counter() - t0
     return path
@@ -130,8 +156,9 @@ def stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check(t, dtype, name: str, shape=None) -> None:
-    """Validate a kernel argument: CUDA, dtype, contiguous, shape."""
+def check(t, dtype, name: str, shape=None, per_voxel: int = 1) -> None:
+    """Validate a kernel argument: CUDA, dtype, contiguous, shape, and
+    fewer than 2**31 voxels (``per_voxel`` elements a voxel)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -141,9 +168,9 @@ def check(t, dtype, name: str, shape=None) -> None:
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    if t.numel() >= 1 << 31:
-        raise ValueError(f"{name}: {t.numel()} elements; int32 voxel "
-                         f"indices need fewer than 2**31")
+    if t.numel() // per_voxel >= 1 << 31:
+        raise ValueError(f"{name}: {t.numel() // per_voxel} voxels; int32 "
+                         f"voxel indices need fewer than 2**31")
 
 
 def on_cuda(t) -> bool:

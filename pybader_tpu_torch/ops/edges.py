@@ -1,19 +1,25 @@
 """Edge classification (``known`` grid).
 
-Port of :func:`pybader_tpu.ops.edges.edge_find` in plain PyTorch: the
-separable periodic 3x3x3 box reductions of its XLA path.  The ongrid
-analysis path calls it without ``is_max`` (the local-maximum mask then
-comes from the density, with vacuum neighbours ignored), which is the XLA
-route in the JAX package too; the Pallas edge kernels and ``edge_check``
-belong to refinement, not yet ported (ROADMAP Queue 2).
+Port of :func:`pybader_tpu.ops.edges.edge_find` and ``edge_check``.  With
+``is_max`` (the ascent stencil's self step, which refinement always has) a
+CUDA tensor runs the kernels of ``csrc/edges.cu``, the port of the Pallas
+kernels of ``ops/pallas_edges.py``; a CPU tensor runs the plain versions,
+the separable periodic 3x3x3 box reductions of the JAX XLA path.  Without
+``is_max`` (the surface-distance stage, whose local-maximum mask comes from
+the density with vacuum neighbours ignored) ``edge_find`` is plain torch on
+any device, as it is XLA in the JAX package.
 
 ``known`` encoding: 2 interior or local maximum, -1 near an edge, -2 edge
-voxel, 0 vacuum far from any edge.
+voxel, 0 vacuum far from any edge.  Vacuum voxels are never edge
+candidates, in both functions (the JAX package's documented deviation from
+the reference's ``edge_check``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pybader_tpu_torch.ops import _cuda
 
 
 def _box_reduce(a: torch.Tensor, combine) -> torch.Tensor:
@@ -23,27 +29,102 @@ def _box_reduce(a: torch.Tensor, combine) -> torch.Tensor:
     return a
 
 
+def _is_edge(labels: torch.Tensor) -> torch.Tensor:
+    """Some non-vacuum neighbour carries another label (vacuum labels are
+    sentinels, so the box max and min differ exactly then)."""
+    vac = labels == -1
+    big = int(np.iinfo(np.int32).max)
+    lab = labels.to(torch.int32)
+    lmax = _box_reduce(torch.where(vac, -big, lab), torch.maximum)
+    lmin = _box_reduce(torch.where(vac, big, lab), torch.minimum)
+    return lmax != lmin
+
+
 def edge_find(reference: torch.Tensor, labels: torch.Tensor,
               is_max: torch.Tensor | None = None) -> torch.Tensor:
     """Full-grid edge scan -> int8 known grid.
 
     A non-vacuum voxel is an edge when some non-vacuum neighbour carries a
     different label and it is not a local maximum; its other neighbours
-    are near-edge.
+    are near-edge.  ``reference`` is read only when ``is_max`` is None.
     """
+    if is_max is not None and _cuda.on_cuda(labels):
+        return edge_find_cuda(labels, is_max)
+    return edge_find_plain(reference, labels, is_max)
+
+
+def edge_find_plain(reference, labels, is_max=None):
     vac = labels == -1
     nonvac = ~vac
-    big = int(np.iinfo(np.int32).max)
-    lab = labels.to(torch.int32)
-    lmax = _box_reduce(torch.where(vac, -big, lab), torch.maximum)
-    lmin = _box_reduce(torch.where(vac, big, lab), torch.minimum)
-    is_edge = lmax != lmin
     if is_max is None:
         rmax = _box_reduce(torch.where(vac, float("-inf"), reference),
                            torch.maximum)
         is_max = rmax == reference
-    edge = nonvac & is_edge & ~is_max
+    edge = nonvac & _is_edge(labels) & ~is_max
     near = _box_reduce(edge, torch.logical_or) & ~edge
     known = torch.where(nonvac, 2, 0).to(torch.int8)
     known = torch.where(near, -1, known).to(torch.int8)
     return torch.where(edge, -2, known).to(torch.int8)
+
+
+def edge_find_cuda(labels, is_max):
+    """Launch ``pb_edge_find`` (csrc/edges.cu)."""
+    _check_grids(labels, is_max)
+    scratch = torch.empty(labels.shape, dtype=torch.uint8,
+                          device=labels.device)
+    known = torch.empty(labels.shape, dtype=torch.int8, device=labels.device)
+    nx, ny, nz = labels.shape
+    _cuda.call("pb_edge_find", labels.data_ptr(), is_max.data_ptr(),
+               scratch.data_ptr(), known.data_ptr(), nx, ny, nz,
+               labels.device.index or 0, _cuda.stream(labels))
+    _cuda.launches["edge_find"] += 1
+    return known
+
+
+def edge_check(known: torch.Tensor, labels: torch.Tensor,
+               is_max: torch.Tensor) -> torch.Tensor:
+    """Re-scan the 27-neighbourhoods of changed edges (known == -2).
+
+    In the order of the JAX ``_edge_check_xla``: candidates (non-vacuum
+    voxels beside or at a changed edge) that are no edge become -1, those
+    that are edges and no maximum become -2 (new edges); then every voxel
+    still >= 0 beside a new edge becomes -1.  Returns the updated known
+    grid; the next edge set is ``known == -2``.
+    """
+    if _cuda.on_cuda(labels):
+        return edge_check_cuda(known, labels, is_max)
+    return edge_check_plain(known, labels, is_max)
+
+
+def edge_check_plain(known, labels, is_max):
+    nonvac = labels != -1
+    cand = _box_reduce(known == -2, torch.logical_or) & nonvac
+    is_edge = _is_edge(labels)
+    new_edge = cand & is_edge & ~is_max
+    out = torch.where(cand & ~is_edge, -1, known).to(torch.int8)
+    out = torch.where(new_edge, -2, out).to(torch.int8)
+    near_new = _box_reduce(new_edge, torch.logical_or) & (out >= 0)
+    return torch.where(near_new, -1, out).to(torch.int8)
+
+
+def edge_check_cuda(known, labels, is_max):
+    """Launch ``pb_edge_check`` (csrc/edges.cu)."""
+    _check_grids(labels, is_max)
+    _cuda.check(known, torch.int8, "known", labels.shape)
+    scratch = torch.empty(labels.shape, dtype=torch.uint8,
+                          device=labels.device)
+    out = torch.empty_like(known)
+    nx, ny, nz = labels.shape
+    _cuda.call("pb_edge_check", known.data_ptr(), labels.data_ptr(),
+               is_max.data_ptr(), scratch.data_ptr(), out.data_ptr(), nx, ny,
+               nz, labels.device.index or 0, _cuda.stream(labels))
+    _cuda.launches["edge_check"] += 1
+    return out
+
+
+def _check_grids(labels, is_max):
+    _cuda.check(labels, torch.int32, "labels")
+    if labels.dim() != 3:
+        raise ValueError(f"labels: expected a 3-D grid, got "
+                         f"{tuple(labels.shape)}")
+    _cuda.check(is_max, torch.bool, "is_max", labels.shape)

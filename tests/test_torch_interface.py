@@ -1,12 +1,16 @@
 """End-to-end parity of the port's Bader class and CLI on the committed
-CHGCAR fixture, ``method='ongrid'`` (with ``refine_method='ongrid'``, what
-``bader -m ongrid`` sets).
+CHGCAR fixture: ``method='ongrid'`` (with ``refine_method='ongrid'``, what
+``bader -m ongrid`` sets), the default profile (neargrid partition and
+('changed', 2) neargrid refinement) and the speed profile (ongrid, then
+('changed', 3) neargrid refinement of the atom map).
 
 Both packages get the same density, lattice, atoms and file_info: the port
 through ``Bader.from_dict`` of the JAX object's ``as_dict``.  Volume maps
 and maxima are identical; charges, volumes and distances agree to 1e-10;
-the CLI's ``-o dat`` files equal the JAX ``results()`` text.
+the CLI's ``-o dat`` files equal the JAX ``results()`` text; the default
+profile meets the fixture's golden charges.
 """
+import json
 import os
 import shutil
 
@@ -23,6 +27,7 @@ torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "fixtures", "CHGCAR_fixture")
+GOLDEN = os.path.join(HERE, "fixtures", "CHGCAR_fixture_golden.json")
 ONGRID = dict(method="ongrid", refine_method="ongrid")
 ARRAYS = ["bader_charge", "bader_volume", "bader_distance", "atoms_charge",
           "atoms_volume", "atoms_surface_distance"]
@@ -123,17 +128,100 @@ def test_export_volume_file_identical(tmp_path, monkeypatch):
     assert (tmp_path / "port" / "Bader-atoms-0-CHGCAR").read_text() == want
 
 
-def test_neargrid_method_not_ported():
-    b = Bader.from_file(FIXTURE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b(output=None)  # default profile: method='neargrid'
+@pytest.fixture(scope="module")
+def default_pair():
+    jb = JaxBader.from_file(FIXTURE)
+    tb = Bader.from_dict(jb.as_dict, device="cpu")
+    assert (tb.method, tb.refine_method) == ("neargrid", "neargrid")
+    assert tuple(tb.refine_mode) == ("changed", 2) and not tb.speed_flag
+    jb(output=None)
+    tb(output=None)
+    return jb, tb
 
 
-def test_ongrid_with_neargrid_refinement_not_ported():
-    b = Bader.from_file(FIXTURE, method="ongrid", device="cpu")
-    assert b.refine_method == "neargrid"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b(output=None)
+def test_default_profile_maps_and_maxima_identical(default_pair):
+    jb, tb = default_pair
+    for key in ("bader_volumes", "atoms_volumes", "bader_atoms"):
+        np.testing.assert_array_equal(getattr(tb, key), getattr(jb, key),
+                                      err_msg=key)
+    np.testing.assert_array_equal(tb.bader_maxima_fractional,
+                                  jb.bader_maxima_fractional)
+
+
+@pytest.mark.parametrize("key", ARRAYS)
+def test_default_profile_arrays_within_1e10(default_pair, key):
+    jb, tb = default_pair
+    np.testing.assert_allclose(getattr(tb, key), getattr(jb, key),
+                               rtol=0, atol=1e-10)
+
+
+def test_default_profile_results_text_identical(default_pair):
+    jb, tb = default_pair
+    assert tb.results() == jb.results()
+    assert tb.results(volume_flag=True) == jb.results(volume_flag=True)
+
+
+def test_default_profile_meets_golden(default_pair):
+    """As tests/test_chgcar_fixture.py holds the JAX package: per-atom
+    charges and volumes to 1e-6, the same maxima, charge conserved."""
+    _, tb = default_pair
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    np.testing.assert_allclose(tb.atoms_charge, golden["atoms_charge"],
+                               atol=1e-6)
+    np.testing.assert_allclose(tb.atoms_volume, golden["atoms_volume"],
+                               atol=1e-6)
+    shape = np.array(tb.density.shape)
+    vox = np.rint(tb.bader_maxima_fractional * shape
+                  - tb.voxel_offset_fractional).astype(int) % shape
+    assert {tuple(m) for m in vox} == {tuple(m) for m in golden["maxima"]}
+    np.testing.assert_allclose(np.sum(tb.atoms_charge),
+                               golden["total_charge"], rtol=1e-9)
+
+
+def test_cli_default_dat_files_equal_jax_results(default_pair, tmp_path,
+                                                 monkeypatch):
+    jb, _ = default_pair
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(entry_points, "__config__",
+                        str(tmp_path / "cfg" / "config.ini"))
+    entry_points.bader([FIXTURE, "-o", "dat", "--device", "cpu"])
+    with open("CHGCAR_fixture-atoms.dat") as f:
+        assert f.read() == jb.results()
+    with open("CHGCAR_fixture-volumes.dat") as f:
+        assert f.read() == jb.results(volume_flag=True)
+
+
+def test_default_profile_vacuum_and_spin_match_jax():
+    jb = JaxBader.from_file(FIXTURE, vacuum_tol=0.2, spin_flag=True)
+    jb.spin = jb.charge * 0.25 - 2.0
+    tb = Bader.from_dict(jb.as_dict, device="cpu")
+    jb(output=None)
+    tb(output=None)
+    assert jb.vacuum_volume > 0 and (tb.bader_volumes == -1).any()
+    np.testing.assert_array_equal(tb.bader_volumes, jb.bader_volumes)
+    np.testing.assert_array_equal(tb.atoms_volumes, jb.atoms_volumes)
+    for key in ARRAYS + ["bader_spin", "atoms_spin"]:
+        np.testing.assert_allclose(getattr(tb, key), getattr(jb, key),
+                                   rtol=0, atol=1e-10, err_msg=key)
+    assert tb.results() == jb.results()
+
+
+def test_speed_profile_matches_jax():
+    """ongrid partition, then ('changed', 3) neargrid refinement of the
+    atom map, which starts fresh (no carry)."""
+    from pybader_tpu_torch.interface import SPEED_CONFIG
+
+    jb = JaxBader.from_file(FIXTURE, **SPEED_CONFIG)
+    tb = Bader.from_dict(jb.as_dict, device="cpu", **SPEED_CONFIG)
+    jb(output=None)
+    tb(output=None)
+    assert not hasattr(tb, "bader_volumes")
+    np.testing.assert_array_equal(tb.atoms_volumes, jb.atoms_volumes)
+    for key in ("atoms_charge", "atoms_volume", "atoms_surface_distance"):
+        np.testing.assert_allclose(getattr(tb, key), getattr(jb, key),
+                                   rtol=0, atol=1e-10, err_msg=key)
+    assert tb.results() == jb.results()
 
 
 def test_cli_profile_writes_chrome_trace(tmp_path, monkeypatch):

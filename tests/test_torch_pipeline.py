@@ -1,7 +1,8 @@
 """Parity: the port's ongrid partition against the JAX package and the
 clean-room serial oracle (labels and maxima identical), with and without
 vacuum and on a many-basin noise field; past 4096 maxima the port matches
-the JAX roots-compaction numbering; the unported neargrid paths raise."""
+the JAX roots-compaction numbering; refinement skips unknown methods and
+zero iterations."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -92,23 +93,11 @@ def test_both_numbering_paths_agree(vacuum_q):
     np.testing.assert_array_equal(tm, jm)
 
 
-def test_neargrid_partition_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.partition_neargrid(None, None, None, None)
-
-
-@pytest.mark.parametrize("method,mode,raises", [
-    ("neargrid", ("changed", 2), True),
-    ("neargrid", ("all", -1), True),
-    ("neargrid", ("changed", 0), False),
-    ("ongrid", ("changed", 2), False),
+@pytest.mark.parametrize("method,mode", [
+    ("neargrid", ("changed", 0)),
+    ("ongrid", ("changed", 2)),
 ])
-def test_refine_labels_neargrid_raises_others_skip(method, mode, raises):
+def test_refine_labels_skips_unknown_method_and_zero_iters(method, mode):
     labels = np.zeros((4, 4, 4), np.int32)
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.refine_labels(method, mode, None, labels, None, None)
-    else:
-        out, changed = tpipe.refine_labels(method, mode, None, labels, None,
-                                           None)
-        assert out is labels and changed == 0
+    out, changed = tpipe.refine_labels(method, mode, None, labels, None, None)
+    assert out is labels and changed == 0

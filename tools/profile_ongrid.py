@@ -1,16 +1,18 @@
-"""Device-time breakdown of the ongrid ``Bader()`` run of chip_smoke.py.
+"""Device-time breakdown of the ``Bader()`` runs of chip_smoke.py.
 
 Run from the repository root on a machine with one CUDA GPU:
 
-    python3 tools/profile_ongrid.py [--size 384] [--warm 3] [--trace PATH]
+    python3 tools/profile_ongrid.py [--size 384] [--warm 3] [--default]
+                                    [--trace PATH]
 
 It builds chip_smoke's blob density at ``--size``^3, runs
-``Bader(method='ongrid')()`` on the card ``--warm`` times unprofiled, then
-once under ``torch.profiler``, and prints the wall time of each run and one
-JSON line with the device time of the profiled run by kind: host<->device
-copies, each hand-written kernel of ``pybader_tpu_torch/csrc``, every other
-kernel, and the share of the wall time in which the device was busy.
-``--trace`` also writes the chrome trace.
+``Bader(method='ongrid')()`` (with ``--default``: ``Bader()()``, the default
+profile) on the card ``--warm`` times unprofiled, then once under
+``torch.profiler``, and prints the wall time of each run and one JSON line
+with the device time of the profiled run by kind: host<->device copies,
+each hand-written kernel of ``pybader_tpu_torch/csrc``, every other kernel,
+and the share of the wall time in which the device was busy.  ``--trace``
+also writes the chrome trace.
 """
 from __future__ import annotations
 
@@ -32,11 +34,14 @@ import chip_smoke  # noqa: E402
 HAND_WRITTEN = ("ongrid_step_codes_kernel", "jump_kernel", "min_pair_kernel",
                 "remap_kernel", "charge_volume_kernel",
                 "surface_min_d2_kernel", "fill_int_kernel",
-                "zero_sums_kernel", "fill_u64_kernel")
+                "zero_sums_kernel", "fill_u64_kernel", "find_flags_kernel",
+                "find_known_kernel", "check_flags_kernel",
+                "check_near_kernel", "rows_kernel", "walk_kernel")
+ONGRID = {"method": "ongrid", "refine_method": "ongrid"}
 
 
-def timed_call(density, atoms, tmp):
-    b = chip_smoke.blob_bader(density, atoms, tmp)
+def timed_call(density, atoms, tmp, config):
+    b = chip_smoke.blob_bader(density, atoms, tmp, **config)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     b()
@@ -91,8 +96,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=chip_smoke.SIZE)
     ap.add_argument("--warm", type=int, default=3)
+    ap.add_argument("--default", action="store_true",
+                    help="profile the default profile instead of ongrid")
     ap.add_argument("--trace", help="write the chrome trace to this path")
     args = ap.parse_args(argv)
+    config = {} if args.default else ONGRID
     if not torch.cuda.is_available():
         sys.exit("profile_ongrid: no CUDA device")
     chip_smoke.card()
@@ -105,11 +113,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         for i in range(args.warm):
-            wall, stages = timed_call(density, atoms, tmp)
+            wall, stages = timed_call(density, atoms, tmp, config)
             print(f"warm {i}: {wall:.3f} s {json.dumps(stages)}", flush=True)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall, stages = timed_call(density, atoms, tmp)
+            wall, stages = timed_call(density, atoms, tmp, config)
     print(f"profiled: {wall:.3f} s {json.dumps(stages)}", flush=True)
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
