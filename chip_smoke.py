@@ -15,30 +15,43 @@ Phases (one line of output each, or a few):
      edge_find on the ongrid labels, neargrid_rows for both gradient tests,
      neargrid_walk on iteration 1's full edge set (stop at known == 2, the
      refinement cap) and edge_check on the known grid after that iteration
-  6. noise: a 384^3 white-noise field (about 2 M basins): the five
+  6. qrows: the four kernels of the quantised-row walks at 384^3 on the
+     same field: nginit_codes on the ongrid codes, neargrid_qrows (refinement
+     gradient), neargrid_walk_q unscreened and screened on iteration 1's
+     padded edge bucket (stop at known == 2, the refinement cap), one
+     block_walk round on those lanes (PYBADER_TPU_BLOCK_STEPS steps), then
+     the whole block phase and the screened walk it feeds timed against
+     the exact walk of the same edges
+  7. noise: a 384^3 white-noise field (about 2 M basins): the five
      partition and sum kernels against their plain versions at that label
      count, then the main-path partition and sums against the plain chain
-  7. cli: the ``bader`` CLI on tests/fixtures/CHGCAR_fixture, with -m
+  8. cli: the ``bader`` CLI on tests/fixtures/CHGCAR_fixture, with -m
      ongrid (charge conserved) and with the default profile (per-atom
      charges, volumes and maxima against the fixture's golden file)
-  8. e2e: ``Bader(..., method='ongrid')()`` at 384^3 with the launch
+  9. e2e: ``Bader(..., method='ongrid')()`` at 384^3 with the launch
      counters reset just before; its six kernels must have launched, charge
      must be conserved and the labels must equal the plain pipeline's
-  9. default: ``Bader(...)()`` with the default profile at 384^3 (the
+ 10. default: ``Bader(...)()`` with the default profile at 384^3 (the
      hybrid: ongrid init, ('changed', 9) internal refinement chained into
      ('changed', 2)); all ten kernels must have launched, charge must be
      conserved, and the volume maps must equal the same call with every op
      on its plain version on the card
- 10. full: at 256^3, neargrid_walk against its plain version on 2^20
+ 11. variants: ``Bader(...)()`` at 384^3 under PYBADER_TPU_HYBRID_INIT=
+     nginit, PYBADER_TPU_QROWS=internal and PYBADER_TPU_BLOCK_WALK=1, then
+     under PYBADER_TPU_BLOCK_WALK=1 alone (screened walks); each must launch
+     its quantised-row kernels, conserve charge and equal the same call with
+     every op on its plain version on the card
+ 12. full: at 256^3, neargrid_walk against its plain version on 2^20
      random starts with the initial cap, then the full-trajectory
      ``partition_neargrid`` through the kernels (charge conserved)
 
 Times are CUDA events, median of 5.  Each kernel's bound is the least time
 the card could take for its work: the larger of the bytes it must move
-(inputs read once, outputs written once; for the walk, the rows its lanes
-touch) over 3.35 TB/s and its f64 operations over 34 TFLOP/s (H100 SXM data
-sheet).  ``library_ms`` times one PyTorch call that computes the same
-function where one exists; the port never calls it.
+(inputs read once, outputs written once; for the walks, the rows their lanes
+touch) over 3.35 TB/s and its operations over the card's rate for their
+type, 34 TFLOP/s in f64 and 67 TFLOP/s in f32 (H100 SXM data sheet).
+``library_ms`` times one PyTorch call that computes the same function where
+one exists; the port never calls it.
 
 Any failure raises (non-zero exit, no result line).  The second-to-last
 line is the kernel table as JSON; the last line is
@@ -71,6 +84,13 @@ N_BLOBS = 60
 LATTICE = np.diag([20.0, 20.0, 20.0])
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
 F64_OPS_PER_S = 34e12      # H100 SXM, f64 outside the tensor cores
+F32_OPS_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
+# the variant calls: environment over the default profile
+VARIANTS = (
+    {"PYBADER_TPU_HYBRID_INIT": "nginit", "PYBADER_TPU_QROWS": "internal",
+     "PYBADER_TPU_BLOCK_WALK": "1"},
+    {"PYBADER_TPU_BLOCK_WALK": "1"},
+)
 
 # kernel -> (CUDA source, TPU kernel it replaces: file:line of pallas_call)
 KERNELS = {
@@ -95,8 +115,19 @@ KERNELS = {
                       "pybader_tpu/ops/neargrid.py:484"),
     "neargrid_walk": ("pybader_tpu_torch/csrc/neargrid.cu",
                       "pybader_tpu/ops/neargrid.py:647"),
+    # the quantised-row walks, and the block walker (Pallas kernel 10)
+    "nginit_codes": ("pybader_tpu_torch/csrc/stencil.cu",
+                     "pybader_tpu/ops/stencil.py:108"),
+    "neargrid_qrows": ("pybader_tpu_torch/csrc/neargrid.cu",
+                       "pybader_tpu/ops/neargrid.py:194"),
+    "neargrid_walk_q": ("pybader_tpu_torch/csrc/neargrid.cu",
+                        "pybader_tpu/ops/neargrid.py:238"),
+    "block_walk": ("pybader_tpu_torch/csrc/block_walk.cu",
+                   "pybader_tpu/ops/block_walk.py:299"),
 }
 ONGRID_KERNELS = tuple(KERNELS)[:6]
+DEFAULT_KERNELS = tuple(KERNELS)[:10]
+Q_KERNELS = tuple(KERNELS)[10:]
 
 
 def say(phase, msg):
@@ -162,11 +193,11 @@ def max_abs_err(a, b):
     return float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
 
 
-def bound(nbytes, f64_ops=0):
-    """The least time for the work: bytes over the memory rate or f64
-    operations over the f64 rate, whichever is larger."""
+def bound(nbytes, f64_ops=0, f32_ops=0):
+    """The least time for the work: bytes over the memory rate or the
+    operations over their type's rate, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = f64_ops / F64_OPS_PER_S
+    t_ops = f64_ops / F64_OPS_PER_S + f32_ops / F32_OPS_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -364,6 +395,104 @@ def neargrid_phase(rho, shape, codes, labels, res):
         f"touched), {changed} changed, {n_capped} at the cap {cap}")
 
 
+def state_equal(a, b):
+    """Identical walk states, f32 fields bit for bit."""
+    for x, y in zip(a, b):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError("kernel and plain walk states differ")
+
+
+def q_walk_cost(lanes, st, screened):
+    """A q walk's bound from this run's data: the rows (and known bytes)
+    its lanes touch, each lane's state read and written once, and its f32
+    operations: 24 a lane-step (3 dequantising products, 3 + 3 rounding
+    sums and truncations twice, 3 + 3 + 3 dr sums), 26 more screened (12
+    absolute values, 6 differences, 4 minima, 2 compares, 2 sums).  The
+    plain version counts lane-steps and rows."""
+    state_bytes = 33 + (5 if screened else 0)
+    return bound(st["rows_touched"] * (8 + 1) + 2 * state_bytes * lanes,
+                 f32_ops=(50 if screened else 24) * st["lane_steps"])
+
+
+def qrows_phase(rho, shape, codes, labels, res):
+    """The four quantised-row kernels against their plain versions on the
+    blob field, on the inputs refinement's first iteration gives them."""
+    from pybader_tpu_torch import grid
+    from pybader_tpu_torch.ops import block_walk, edges, neargrid, stencil
+
+    n = rho.numel()
+    tg = torch.as_tensor(grid.t_grad(LATTICE, shape), device=rho.device)
+    # the rows' 38 f64 operations, then 3 roundings of 2 sums, 1 compare
+    compare("nginit_codes", res,
+            lambda: stencil.neargrid_init_codes_cuda(rho, codes, tg),
+            lambda: stencil.neargrid_init_codes_plain(rho, codes, tg), equal,
+            "qrows", bound((8 + 1 + 1) * n, 51 * n))
+    # the rows' 38 f64 operations and 3 scalings
+    qrows = compare(
+        "neargrid_qrows", res,
+        lambda: neargrid.neargrid_qrows_cuda(rho, codes, tg, True),
+        lambda: neargrid.neargrid_qrows_plain(rho, codes, tg, True), equal,
+        "qrows", bound((8 + 1 + 8) * n, 41 * n))
+    known = edges.edge_find_cuda(labels, codes == 13)
+    starts = torch.nonzero(known.reshape(-1) == -2).reshape(-1).to(
+        torch.int32)
+    lanes = neargrid.bucket_size(starts.numel())
+    padded = neargrid.pad_to(starts, lanes)
+    cap = neargrid.refine_cap(shape)
+    for screened in (False, True):
+        state = neargrid.init_state(padded, screened)
+        st = {}
+        neargrid.neargrid_walk_q_plain(qrows, state, shape, cap, known, st)
+        out = compare(
+            "neargrid_walk_q", res,
+            lambda: neargrid.neargrid_walk_q_cuda(qrows, state, shape, cap,
+                                                  known),
+            lambda: neargrid.neargrid_walk_q_plain(qrows, state, shape, cap,
+                                                   known),
+            state_equal, "qrows", q_walk_cost(lanes, st, screened))
+        risky = f", {int(out[6].sum())} risky" if screened else ""
+        say("qrows", f"walk_q screened={screened}: {starts.numel()} edges in "
+            f"{lanes} lanes, {st['lane_steps']} lane-steps, "
+            f"{st['rows_touched']} rows touched, {int((~out[4]).sum())} at "
+            f"the cap {cap}{risky}")
+    steps = int(os.environ.get("PYBADER_TPU_BLOCK_STEPS", "24"))
+    order, blocks, live = block_walk.prep_round(state, shape)
+    state = tuple(a[order] for a in state)
+    st = {}
+    block_walk.block_round_plain(qrows, state, blocks, live, shape, steps,
+                                 known, st)
+    out = compare(
+        "block_walk", res,
+        lambda: block_walk.block_round_cuda(qrows, state, blocks, live, shape,
+                                            steps, known),
+        lambda: block_walk.block_round_plain(qrows, state, blocks, live,
+                                             shape, steps, known),
+        state_equal, "qrows", q_walk_cost(lanes, st, True))
+    say("qrows", f"block round ({steps} steps, {int(live.sum())} live tiles "
+        f"of {live.numel()}): {int(out[4].sum() - state[4].sum())} lanes "
+        f"retired, {st['lane_steps']} lane-steps, {st['rows_touched']} rows "
+        f"touched")
+    # the whole block phase and the screened walk it feeds, against the
+    # exact walk the default path runs on the same edges
+    rows = neargrid.neargrid_rows_cuda(rho, codes, tg, True)
+    exact_ms = time_ms(lambda: neargrid.neargrid_walk_cuda(
+        rows, starts, shape, cap, known))
+    with environ({"PYBADER_TPU_BLOCK_WALK": "1"}):
+        st = {}
+        block_walk.block_phase(qrows, neargrid.init_state(padded, True),
+                               shape, known, stats=st)
+        phase_ms = time_ms(lambda: block_walk.block_phase(
+            qrows, neargrid.init_state(padded, True), shape, known))
+        walk_ms = time_ms(lambda: neargrid.walk_screened(
+            qrows, lambda: rows, padded, shape, cap, known))
+    alive = st["block_rounds"][0]
+    say("qrows", f"block phase {phase_ms:.3f} ms ({len(alive)} rounds, "
+        f"{alive[-1]} of {starts.numel()} lanes left), screened walk with "
+        f"it {walk_ms:.3f} ms, exact walk {exact_ms:.3f} ms")
+
+
 def noise_phase(shape, device="cuda"):
     """Many labels: a white-noise field has about N/27 one-voxel-deep
     basins, so charge_volume takes its global-atomic branch (K > 3072) and
@@ -514,9 +643,9 @@ def check_charge(b, density):
 
 @contextmanager
 def refine_iterations(record):
-    """Hand every refine_labels call a stats dict and keep its per-iteration
-    (edges, changed, cap fires) in ``record`` (the hybrid's internal call
-    and the user's)."""
+    """Hand every refine_labels call a stats dict and keep, in ``record``,
+    its per-iteration (edges, changed, cap fires, risky lanes) and block
+    rounds (the hybrid's internal call and the user's)."""
     from pybader_tpu_torch import pipeline
 
     real = pipeline.refine_labels
@@ -526,43 +655,51 @@ def refine_iterations(record):
         if stats is None:
             stats = kwargs["stats"] = {}
         out = real(*args, **kwargs)
-        record.append([list(it[:3]) for it in stats.get("iterations", [])])
+        record.append({
+            "iterations": [list(it[:4]) for it in stats.get("iterations", [])],
+            "block_rounds": stats.get("block_rounds", [])})
         return out
 
     with mock.patch.object(pipeline, "refine_labels", counted):
         yield
 
 
-def default_phase(rho, atoms_cart, tmp):
-    """The default profile at 384^3 through the kernels, then the same call
-    with every op on its plain version on the card."""
+@contextmanager
+def environ(values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_bader(b, record):
+    """Call a Bader with fresh launch counts and peak memory; returns
+    (seconds, launches, peak bytes)."""
     from pybader_tpu_torch.ops import _cuda
 
-    density = rho.cpu().numpy()
-    b = blob_bader(density, atoms_cart, tmp)
-    assert (b.method, b.refine_method) == ("neargrid", "neargrid")
-    assert tuple(b.refine_mode) == ("changed", 2) and not b.speed_flag
-    iterations = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.launches.clear()
     t0 = time.perf_counter()
-    with refine_iterations(iterations):
+    with refine_iterations(record):
         b()
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(_cuda.launches)
-    peak = torch.cuda.max_memory_allocated()
-    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
-    if missing:
-        raise AssertionError(f"default path launched no {missing}")
-    check_charge(b, density)
-    say("default", f"{SIZE}^3 Bader()() default profile: {seconds:.3f} s, "
-        f"{len(b.bader_charge)} basins, peak device memory {peak} bytes")
-    say("default", "stage seconds " + json.dumps(b.stage_seconds))
-    say("default", "refine (edges, changed, cap fires) per iteration, "
-        "internal then user: " + json.dumps(iterations))
-    say("default", "launches " + json.dumps(launches))
+    return (time.perf_counter() - t0, dict(_cuda.launches),
+            torch.cuda.max_memory_allocated())
+
+
+def equal_plain(b, density, atoms_cart, tmp, phase):
+    """The same call with every op on its plain version on the card must
+    give the same volume maps and maxima."""
+    from pybader_tpu_torch.ops import _cuda
+
     bp = blob_bader(density, atoms_cart, tmp)
     t0 = time.perf_counter()
     with mock.patch.object(_cuda, "on_cuda", lambda t: False):
@@ -574,9 +711,84 @@ def default_phase(rho, atoms_cart, tmp):
     if not np.array_equal(b.bader_maxima_fractional,
                           bp.bader_maxima_fractional):
         raise AssertionError("maxima differ from the plain pipeline")
-    say("default", f"volume maps and maxima equal the plain pipeline on the "
+    say(phase, f"volume maps and maxima equal the plain pipeline on the "
         f"card ({time.perf_counter() - t0:.3f} s)")
-    return launches
+
+
+def default_phase(rho, atoms_cart, tmp):
+    """The default profile at 384^3 through the kernels, then the same call
+    with every op on its plain version on the card.  Returns the launches
+    and the Bader result."""
+    density = rho.cpu().numpy()
+    b = blob_bader(density, atoms_cart, tmp)
+    assert (b.method, b.refine_method) == ("neargrid", "neargrid")
+    assert tuple(b.refine_mode) == ("changed", 2) and not b.speed_flag
+    record = []
+    seconds, launches, peak = run_bader(b, record)
+    missing = [k for k in DEFAULT_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"default path launched no {missing}")
+    check_charge(b, density)
+    say("default", f"{SIZE}^3 Bader()() default profile: {seconds:.3f} s, "
+        f"{len(b.bader_charge)} basins, peak device memory {peak} bytes")
+    say("default", "stage seconds " + json.dumps(b.stage_seconds))
+    say("default", "refine (edges, changed, cap fires, risky) per "
+        "iteration, internal then user: "
+        + json.dumps([r["iterations"] for r in record]))
+    say("default", "launches " + json.dumps(launches))
+    equal_plain(b, density, atoms_cart, tmp, "default")
+    return launches, b
+
+
+def relabelled(b, ref):
+    """Voxels whose basin, named by its maximum, differs between two
+    Bader results (the numbering of two inits may differ)."""
+    index = {tuple(m): i for i, m in enumerate(ref.bader_maxima_fractional)}
+    table = np.array([index.get(tuple(m), -2)
+                      for m in b.bader_maxima_fractional])
+    lab = b.bader_volumes
+    mapped = np.where(lab >= 0, table[np.maximum(lab, 0)], lab)
+    return int((mapped != ref.bader_volumes).sum())
+
+
+def variants_phase(rho, atoms_cart, tmp, default):
+    """``Bader()`` at 384^3 under each of VARIANTS, through the kernels and
+    then with every op on its plain version on the card.  Returns the
+    quantised-row kernels' launches, summed over the calls."""
+    density = rho.cpu().numpy()
+    total = {k: 0 for k in Q_KERNELS}
+    for env in VARIANTS:
+        name = " ".join(f"{k}={v}" for k, v in env.items())
+        with environ(env):
+            b = blob_bader(density, atoms_cart, tmp)
+            record = []
+            seconds, launches, peak = run_bader(b, record)
+            want = Q_KERNELS if "PYBADER_TPU_HYBRID_INIT" in env \
+                else Q_KERNELS[1:]
+            missing = [k for k in want if launches.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"{name} launched no {missing}")
+            check_charge(b, density)
+            diff = relabelled(b, default)
+            say("variants", f"{name}: {SIZE}^3 Bader()() {seconds:.3f} s, "
+                f"{len(b.bader_charge)} basins, peak device memory {peak} "
+                f"bytes, {diff} voxels labelled unlike the default call")
+            for call, r in zip(("internal", "user"), record):
+                say("variants", f"{call} refine (edges, changed, cap fires, "
+                    f"risky) per iteration: {json.dumps(r['iterations'])}")
+                for it, walks in zip(r["iterations"], r["block_rounds"]):
+                    for alive in walks:
+                        live = [it[0]] + alive
+                        say("variants", f"  {it[0]} edges: {len(alive)} "
+                            f"block rounds, lanes retired each round "
+                            f"{[a - b for a, b in zip(live, live[1:])]}, "
+                            f"{alive[-1]} left for the q walker")
+            say("variants", "stage seconds " + json.dumps(b.stage_seconds))
+            say("variants", "launches " + json.dumps(launches))
+            equal_plain(b, density, atoms_cart, tmp, "variants")
+        for k in Q_KERNELS:
+            total[k] += launches.get(k, 0)
+    return total
 
 
 def full_phase():
@@ -652,6 +864,7 @@ def main():
     results, plain_labels, plain_atom_labels, codes = kernel_phase(
         rho, atoms_cart, shape)
     neargrid_phase(rho, shape, codes, plain_labels, results)
+    qrows_phase(rho, shape, codes, plain_labels, results)
     del codes
     noise_phase(shape, DEVICE)
     with tempfile.TemporaryDirectory() as tmp:
@@ -659,7 +872,8 @@ def main():
         e2e_phase(rho, atoms_cart, shape, tmp, plain_labels,
                   plain_atom_labels)
         del plain_labels, plain_atom_labels
-        launches = default_phase(rho, atoms_cart, tmp)
+        launches, default = default_phase(rho, atoms_cart, tmp)
+        launches.update(variants_phase(rho, atoms_cart, tmp, default))
     del rho
     full_phase()
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

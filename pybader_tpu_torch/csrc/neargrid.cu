@@ -1,37 +1,40 @@
-// Neargrid walk rows and the trajectory walker.
+// Neargrid walk rows and the trajectory walkers.
 //
-// Replace the XLA walk of pybader_tpu/ops/neargrid.py: the row build
+// Replace the XLA walk of pybader_tpu/ops/neargrid.py: the row builds
 // precompute_rows (:484, with _gd_components :64, _denom_flags :82 and
-// _pack_parent :523) and the exact-row walk _walk_segment_packed (:647) as
-// driven by walk (:907).  The JAX package also walks quantised 8-byte rows
-// under an exactness screen, in compacted buckets and bounded segments
-// (walk_drain); those are TPU gather-rate machinery whose results equal the
-// exact-row walk, so only the exact walk is ported.
+// _pack_parent :523) and precompute_qrows (:194, with _quantize_col :214 and
+// _pack_qwords :220), the exact-row walk _walk_segment_packed (:647) as
+// driven by walk (:907), and the quantised-row walks _walk_segment_q (:238)
+// and _walk_segment_qs (:337).  The JAX drain loop's segments and compaction
+// schedule the walks for the TPU without changing their results; here one
+// thread walks a lane to its end in one launch.
 //
-// Row layout, 32 bytes, one per voxel, so a walker step reads one sector:
+// Exact row layout, 32 bytes, one per voxel, so a walker step reads one
+// sector:
 //     double g[3]   inf-normalised transformed gradient
 //     int32 parent  flat index of the ongrid ascent target
 //     uint8 flags   kOngrid (|gd| < 1e-14) | kMax (parent == self)
 //     3 bytes zero
 // The parent is a full int32 column (the JAX packed word kept 28 bits).
+// Quantised rows are JAX's two int32 words (qwalk.cuh), 8 bytes a voxel.
 //
 // Arithmetic: every sum and product is rounded on its own (__dadd_rn,
-// __dmul_rn, and the library builds with -fmad=false), so the rows equal
-// the plain PyTorch version bit for bit.  XLA's CPU backend fuses some of
-// the gradient multiply-adds, so the JAX rows differ from these by a few
-// ulp; the walker itself is exact on whatever rows it is given.
+// __dmul_rn, __fadd_rn, and the library builds with -fmad=false), so the
+// rows and walks equal the plain PyTorch versions bit for bit.  XLA's CPU
+// backend fuses some of the gradient multiply-adds, so the JAX exact rows
+// differ from these by a few ulp; the walkers are exact on whatever rows
+// they are given.
 
 #include "common.cuh"
+#include "grad.cuh"
+#include "qwalk.cuh"
 
 namespace {
 
 constexpr int kOngrid = 1;
 constexpr int kMax = 2;
 
-__device__ __forceinline__ int wrap(int v, int n) {
-    v %= n;
-    return v < 0 ? v + n : v;
-}
+using pb::wrap;
 
 // ----------------------------------------------------------------- rows
 // Bound: device memory.  A voxel reads its density, six axis neighbours
@@ -53,35 +56,9 @@ __global__ void rows_kernel(const double* __restrict__ rho,
          i < n; i += stride) {
         int x, y, z;
         pb::unflatten(i, ny, nz, x, y, z);
-        const double rp = rho[i];
-        const long long up[3] = {
-            (static_cast<long long>(wrap(x + 1, nx)) * ny + y) * nz + z,
-            (static_cast<long long>(x) * ny + wrap(y + 1, ny)) * nz + z,
-            (static_cast<long long>(x) * ny + y) * nz + wrap(z + 1, nz)};
-        const long long dn[3] = {
-            (static_cast<long long>(wrap(x - 1, nx)) * ny + y) * nz + z,
-            (static_cast<long long>(x) * ny + wrap(y - 1, ny)) * nz + z,
-            (static_cast<long long>(x) * ny + y) * nz + wrap(z - 1, nz)};
-        double grad[3];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-            const double ru = rho[up[j]];
-            const double rd = rho[dn[j]];
-            const bool flat = strict ? (ru < rp && rd < rp)
-                                     : (ru <= rp && rd <= rp);
-            grad[j] = flat ? 0.0 : __dmul_rn(__dsub_rn(ru, rd), 0.5);
-        }
-        // gd_i = ((0 + T[i,0] g0) + T[i,1] g1) + T[i,2] g2, JAX's order
         double gd[3];
-#pragma unroll
-        for (int r = 0; r < 3; ++r) {
-            double acc = 0.0;
-#pragma unroll
-            for (int j = 0; j < 3; ++j)
-                acc = __dadd_rn(acc, __dmul_rn(t[r * 3 + j], grad[j]));
-            gd[r] = acc;
-        }
-        const double mg = fmax(fmax(fabs(gd[0]), fabs(gd[1])), fabs(gd[2]));
+        const double mg = pb::transformed_gradient(rho, i, x, y, z, nx, ny,
+                                                   nz, t, strict != 0, gd);
         const double denom = mg > 0.0 ? mg : 1.0;
         const int code = codes[i];
         const int px = wrap(x + code / 9 - 1, nx);
@@ -98,6 +75,42 @@ __global__ void rows_kernel(const double* __restrict__ rho,
                                    __ddiv_rn(gd[1], denom));
         rows[2 * i + 1] = make_double2(__ddiv_rn(gd[2], denom),
                                        __longlong_as_double(word));
+    }
+}
+
+// ---------------------------------------------------------------- q-rows
+// Bound: device memory, as rows_kernel: 8 + 1 bytes read and 8 written a
+// voxel.  q_i = round(g_i * 262143) rounds half to even, as jnp.round.
+__global__ void qrows_kernel(const double* __restrict__ rho,
+                             const unsigned char* __restrict__ codes,
+                             const double* __restrict__ t_grad,
+                             int2* __restrict__ qrows, int nx, int ny, int nz,
+                             int strict) {
+    __shared__ double t[9];
+    if (threadIdx.x < 9) t[threadIdx.x] = t_grad[threadIdx.x];
+    __syncthreads();
+    const long long n = static_cast<long long>(nx) * ny * nz;
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         i < n; i += stride) {
+        int x, y, z;
+        pb::unflatten(i, ny, nz, x, y, z);
+        double gd[3];
+        const double mg = pb::transformed_gradient(rho, i, x, y, z, nx, ny,
+                                                   nz, t, strict != 0, gd);
+        const double denom = mg > 0.0 ? mg : 1.0;
+        unsigned int q[3];
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+            q[r] = static_cast<unsigned int>(__double2int_rn(
+                       __dmul_rn(__ddiv_rn(gd[r], denom), 262143.0))) &
+                   0x7FFFFu;
+        const unsigned int code = codes[i];
+        const unsigned int w0 = q[0] | ((q[1] & 0x1FFFu) << 19);
+        const unsigned int w1 = (q[1] >> 13) | (q[2] << 6) | (code << 25) |
+                                (mg < 1e-14 ? 1u << 30 : 0u);
+        qrows[i] = make_int2(static_cast<int>(w0), static_cast<int>(w1));
     }
 }
 
@@ -132,6 +145,11 @@ __global__ void walk_kernel(const double2* __restrict__ rows,
     if (lane >= k) return;
     const int nyz = ny * nz;
     int pos = starts[lane];
+    if (pos < 0) {  // a padding lane, born done at voxel 0
+        pos_out[lane] = 0;
+        done_out[lane] = 1;
+        return;
+    }
     int prev = -1, h0 = -1, h1 = -1, h2 = -1;
     double d0 = 0.0, d1 = 0.0, d2 = 0.0;
     bool done = false;
@@ -181,6 +199,51 @@ __global__ void walk_kernel(const double2* __restrict__ rows,
     done_out[lane] = done ? 1 : 0;
 }
 
+// Resume quantised-row walks (state in place) for up to max_steps steps:
+// the exact walker's loop on 8-byte q-rows, f32 dr, the stop set read from
+// known == 2; for the screened walk also the error bound and risky flag.
+// Bound: the latency of the dependent 8-byte row gathers, as walk_kernel.
+template <bool kScreened>
+__global__ void walk_q_kernel(const int2* __restrict__ qrows,
+                              const signed char* __restrict__ known,
+                              int* __restrict__ pos, int* __restrict__ prev,
+                              int* __restrict__ hist, float* __restrict__ dr,
+                              unsigned char* __restrict__ done,
+                              float* __restrict__ err,
+                              unsigned char* __restrict__ risky, long long k,
+                              int nx, int ny, int nz, int max_steps) {
+    const long long lane =
+        static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (lane >= k || done[lane]) return;
+    pb::QLane s = pb::load_lane<kScreened>(lane, pos, prev, hist, dr, err,
+                                           risky);
+    for (int step = 0;; ++step) {
+        const int2 w = __ldg(&qrows[s.pos]);
+        if (pb::q_stops(w.y, known, s.pos)) {
+            done[lane] = 1;
+            break;
+        }
+        if (step == max_steps) break;
+        pb::q_advance<kScreened>(w.x, w.y, s, nx, ny, nz);
+    }
+    pb::store_lane<kScreened>(lane, s, pos, prev, hist, dr, err, risky);
+}
+
+template <bool kScreened>
+void launch_walk_q(unsigned int blocks, void* stream, void* qrows,
+                   void* known, void* pos, void* prev, void* hist, void* dr,
+                   void* done, void* err, void* risky, long long k, int nx,
+                   int ny, int nz, int max_steps) {
+    walk_q_kernel<kScreened><<<blocks, pb::kThreads, 0,
+                               pb::as_stream(stream)>>>(
+        static_cast<const int2*>(qrows),
+        static_cast<const signed char*>(known), static_cast<int*>(pos),
+        static_cast<int*>(prev), static_cast<int*>(hist),
+        static_cast<float*>(dr), static_cast<unsigned char*>(done),
+        static_cast<float*>(err), static_cast<unsigned char*>(risky), k, nx,
+        ny, nz, max_steps);
+}
+
 }  // namespace
 
 PB_EXPORT int pb_neargrid_rows(void* rho, void* codes, void* t_grad,
@@ -197,6 +260,20 @@ PB_EXPORT int pb_neargrid_rows(void* rho, void* codes, void* t_grad,
     return static_cast<int>(cudaGetLastError());
 }
 
+PB_EXPORT int pb_neargrid_qrows(void* rho, void* codes, void* t_grad,
+                                void* qrows, int nx, int ny, int nz,
+                                int strict, int device, void* stream) {
+    cudaSetDevice(device);
+    const long long n = static_cast<long long>(nx) * ny * nz;
+    qrows_kernel<<<pb::blocks_for(n, device), pb::kThreads, 0,
+                   pb::as_stream(stream)>>>(
+        static_cast<const double*>(rho),
+        static_cast<const unsigned char*>(codes),
+        static_cast<const double*>(t_grad), static_cast<int2*>(qrows), nx, ny,
+        nz, strict);
+    return static_cast<int>(cudaGetLastError());
+}
+
 PB_EXPORT int pb_neargrid_walk(void* rows, void* starts, void* known,
                                void* pos_out, void* done_out, long long k,
                                int nx, int ny, int nz, int max_steps,
@@ -209,5 +286,24 @@ PB_EXPORT int pb_neargrid_walk(void* rows, void* starts, void* known,
         static_cast<const double2*>(rows), static_cast<const int*>(starts),
         static_cast<const signed char*>(known), static_cast<int*>(pos_out),
         static_cast<unsigned char*>(done_out), k, nx, ny, nz, max_steps);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// err and risky are null for the unscreened walk.
+PB_EXPORT int pb_neargrid_walk_q(void* qrows, void* known, void* pos,
+                                 void* prev, void* hist, void* dr, void* done,
+                                 void* err, void* risky, long long k, int nx,
+                                 int ny, int nz, int max_steps, int device,
+                                 void* stream) {
+    cudaSetDevice(device);
+    if (k <= 0) return static_cast<int>(cudaGetLastError());
+    const unsigned int blocks =
+        static_cast<unsigned int>((k + pb::kThreads - 1) / pb::kThreads);
+    if (err != nullptr)
+        launch_walk_q<true>(blocks, stream, qrows, known, pos, prev, hist, dr,
+                            done, err, risky, k, nx, ny, nz, max_steps);
+    else
+        launch_walk_q<false>(blocks, stream, qrows, known, pos, prev, hist,
+                             dr, done, err, risky, k, nx, ny, nz, max_steps);
     return static_cast<int>(cudaGetLastError());
 }

@@ -30,8 +30,9 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("stencil.cu", "flood.cu", "reduce.cu", "edges.cu", "neargrid.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("stencil.cu", "flood.cu", "reduce.cu", "edges.cu", "neargrid.cu",
+           "block_walk.cu")
+HEADERS = ("common.cuh", "grad.cuh", "qwalk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # exact f64: no contraction of a*b+c into one rounding (stencil.cu)
@@ -55,6 +56,12 @@ _ENTRIES = {
     "pb_edge_check": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pb_neargrid_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pb_neargrid_walk": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    "pb_neargrid_qrows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pb_neargrid_walk_q": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                           _I, _I, _P),
+    "pb_block_walk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
+                      _I, _I, _I, _P),
+    "pb_nginit_codes": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib = None

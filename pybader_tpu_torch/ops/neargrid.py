@@ -1,32 +1,48 @@
-"""Neargrid walk rows and the trajectory walker.
+"""Neargrid walk rows and the trajectory walkers.
 
-Port of the exact-row walk of :mod:`pybader_tpu.ops.neargrid`:
-``precompute_rows`` (with ``_gd_components``, ``_denom_flags`` and
-``_pack_parent``) and ``_walk_segment_packed`` as ``walk`` drives it.  The
-JAX package's drain loop, bucket ladder, chunking and quantised rows with
-their exactness screen schedule the walk for the TPU and give the same
-results as the exact-row walk; none of them is ported.
+Port of :mod:`pybader_tpu.ops.neargrid`: the exact rows
+(``precompute_rows``, with ``_gd_components``, ``_denom_flags`` and
+``_pack_parent``) and their walk (``_walk_segment_packed`` as ``walk``
+drives it), and the quantised 8-byte rows (``precompute_qrows``) with their
+unscreened and screened walks (``_walk_segment_q``, ``_walk_segment_qs``),
+the drain loop ``walk_drain`` (block phase first, then the full step budget)
+and ``walk_drain_screened`` (risky lanes walked again on exact rows).  The
+drain loop's segments, compaction and pipelined counts schedule the walk
+for the TPU without changing its results and are not ported; its bucket
+ladder is, because the padded lane count decides the block rounds
+(:mod:`pybader_tpu_torch.ops.block_walk`).
 
-A row is 32 bytes, one per voxel (``csrc/neargrid.cu``): the three
+Exact rows are 32 bytes, one per voxel (``csrc/neargrid.cu``): the three
 inf-normalised f64 gradient components, then an int32 ongrid parent and a
 flag byte, :data:`ONGRID` (``max|gd| < 1e-14``) and :data:`MAX` (the parent
 is the voxel itself: maxima and vacuum).  In torch the rows are an (N, 4)
 float64 tensor whose fourth column holds the parent and the flags as the
 int32 pair ``rows.view(torch.int32)[:, 6:8]``.
 
+Quantised rows are JAX's two int32 words, bit for bit (19-bit components
+``q = round(g * 262143)``, the 5-bit ongrid step code, the ongrid bit), so
+JAX's own q-rows feed the port's walkers in the tests.  JAX bakes the stop
+set into the sign bit; the port's walkers read it from ``known == 2``
+instead, as the exact walker does, and its q-rows never carry the bit.
+
 The rows are built without fused multiply-adds in JAX's accumulation order,
 so the kernel and the plain version agree bit for bit.  XLA's CPU backend
 fuses some of those multiply-adds, so JAX's rows can differ from the port's
 by a few ulp (never in the flags or parents); :func:`rows_from_jax_rows`
-converts JAX rows so that the walker can be held to JAX bit for bit.
+converts JAX rows so that the walker can be held to JAX bit for bit.  The
+q walks are f32 as in JAX, each sum and product rounded on its own.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from pybader_tpu_torch.ops import _cuda
-from pybader_tpu_torch.ops.stencil import parent_from_step_codes
+from pybader_tpu_torch.ops.stencil import (
+    gradient_plain, parent_from_step_codes,
+)
 
 ONGRID = 1  # flag: gradient ~ 0, step to the ongrid parent
 MAX = 2     # flag: the ongrid parent is the voxel itself
@@ -68,22 +84,8 @@ def neargrid_rows(reference: torch.Tensor, codes: torch.Tensor, t_grad,
 
 def neargrid_rows_plain(reference, codes, t_grad, strict_grad: bool):
     """Plain PyTorch rows, in the op order of the JAX build."""
-    t = [[float(v) for v in r] for r in np.asarray(
-        torch.as_tensor(t_grad, dtype=torch.float64).cpu())]
     n = reference.numel()
-    gd = [torch.zeros(n, dtype=torch.float64, device=reference.device)
-          for _ in range(3)]
-    for j in range(3):
-        up = torch.roll(reference, -1, j)
-        dn = torch.roll(reference, 1, j)
-        if strict_grad:
-            flat = (up < reference) & (dn < reference)
-        else:
-            flat = (up <= reference) & (dn <= reference)
-        grad_j = torch.where(flat, 0.0, (up - dn) * 0.5).reshape(-1)
-        for i in range(3):
-            gd[i] = gd[i] + t[i][j] * grad_j
-    mg = torch.maximum(torch.maximum(gd[0].abs(), gd[1].abs()), gd[2].abs())
+    gd, mg = gradient_plain(reference, t_grad, strict_grad)
     denom = torch.where(mg > 0, mg, 1.0)
     rows = torch.empty((n, 4), dtype=torch.float64, device=reference.device)
     for i in range(3):
@@ -149,7 +151,8 @@ def neargrid_walk(rows: torch.Tensor, starts: torch.Tensor, shape,
 
     args:
         rows: (N, 4) rows from :func:`neargrid_rows`.
-        starts: (K,) int32 flat start voxels.
+        starts: (K,) int32 flat start voxels; -1 marks a padding lane,
+            born done at voxel 0 (JAX's ``_init_state``).
         shape: the grid shape (nx, ny, nz).
         max_steps: the step cap; a lane still walking after it reports
             done False at its last position (callers resolve it through
@@ -183,14 +186,15 @@ def neargrid_walk_plain(rows, starts, shape, max_steps: int, known=None,
     parent = words[:, 6].long()
     flags = words[:, 7]
     stop = None if known is None else known.reshape(-1) == 2
-    k = starts.numel()
-    lane = torch.arange(k, device=dev)
-    pos = starts.reshape(-1).long()
+    starts = starts.reshape(-1).long()
+    out_pos = starts.clamp(min=0)
+    out_done = starts < 0
+    lane = torch.nonzero(~out_done).reshape(-1)
+    k = lane.numel()
+    pos = out_pos[lane]
     prev = torch.full((k,), -1, dtype=torch.long, device=dev)
     hist = torch.full((k, 3), -1, dtype=torch.long, device=dev)
     dr = torch.zeros((k, 3), dtype=torch.float64, device=dev)
-    out_pos = pos.clone()
-    out_done = torch.zeros(k, dtype=torch.bool, device=dev)
     touched = None
     lane_steps = 0
     if stats is not None:
@@ -244,8 +248,8 @@ def neargrid_walk_cuda(rows, starts, shape, max_steps: int, known=None):
         _cuda.check(known, torch.int8, "known", shape)
     if starts.numel():
         lo, hi = torch.aminmax(starts)
-        if int(lo) < 0 or int(hi) >= n:
-            raise ValueError(f"starts: flat indices must lie in [0, {n})")
+        if int(lo) < -1 or int(hi) >= n:
+            raise ValueError(f"starts: flat indices must lie in [-1, {n})")
     pos = torch.empty(starts.shape, dtype=torch.int32, device=rows.device)
     done = torch.empty(starts.shape, dtype=torch.bool, device=rows.device)
     _cuda.call("pb_neargrid_walk", rows.data_ptr(), starts.data_ptr(),
@@ -253,4 +257,368 @@ def neargrid_walk_cuda(rows, starts, shape, max_steps: int, known=None):
                done.data_ptr(), starts.numel(), nx, ny, nz, int(max_steps),
                rows.device.index or 0, _cuda.stream(rows))
     _cuda.launches["neargrid_walk"] += 1
+    return pos, done
+
+
+# ------------------------------------------------------------------ q-rows
+Q_SCALE = 262143.0  # 2^18 - 1: |q| <= Q_SCALE fits 19 signed bits
+Q_CODE_SHIFT = 25
+Q_ONGRID_BIT = 1 << 30
+# the screened walk's per-decision error bound (JAX's _QS_EPS), an f32 value
+QS_EPS = float(np.float32(3e-6))
+_INV_SCALE = float(np.float32(1.0 / Q_SCALE))  # f32(1/262143), as in JAX
+
+
+def neargrid_qrows(reference: torch.Tensor, codes: torch.Tensor, t_grad,
+                   strict_grad: bool) -> torch.Tensor:
+    """(N, 2) int32 quantised walk rows, JAX's ``precompute_qrows`` layout:
+
+        word0 = q0[0:19) | q1_lo[19:32)
+        word1 = q1_hi[0:6) | q2[6:25) | code[25:30) | ONGRID[30]
+
+    with ``q_i = round(g_i * 262143)`` (half to even, as ``jnp.round``) of
+    the inf-normalised gradient and ``code`` the ongrid step code (13 for
+    maxima and vacuum).  Bit 31 (JAX's stop bit) stays clear.  A CUDA
+    tensor runs ``csrc/neargrid.cu``; a CPU tensor the plain version.
+    """
+    if _cuda.on_cuda(reference):
+        return neargrid_qrows_cuda(reference, codes, t_grad, strict_grad)
+    return neargrid_qrows_plain(reference, codes, t_grad, strict_grad)
+
+
+def _i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values holding 32-bit patterns -> int32 with those bits."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def neargrid_qrows_plain(reference, codes, t_grad, strict_grad: bool):
+    """Plain PyTorch q-rows, in the op order of the JAX build."""
+    gd, mg = gradient_plain(reference, t_grad, strict_grad)
+    denom = torch.where(mg > 0, mg, 1.0)
+    q = [torch.round(gd[i] / denom * Q_SCALE).long() & 0x7FFFF
+         for i in range(3)]
+    code = codes.reshape(-1).long()
+    w0 = q[0] | ((q[1] & 0x1FFF) << 19)
+    w1 = (q[1] >> 13) | (q[2] << 6) | (code << Q_CODE_SHIFT) \
+        | torch.where(mg < 1e-14, Q_ONGRID_BIT, 0)
+    return torch.stack([_i32(w0), w1.to(torch.int32)], 1)
+
+
+def neargrid_qrows_cuda(reference, codes, t_grad, strict_grad: bool):
+    """Launch ``pb_neargrid_qrows`` (csrc/neargrid.cu)."""
+    _cuda.check(reference, torch.float64, "reference")
+    if reference.dim() != 3:
+        raise ValueError(f"reference: expected a 3-D grid, got "
+                         f"{tuple(reference.shape)}")
+    _cuda.check(codes, torch.uint8, "codes", reference.shape)
+    t = torch.as_tensor(t_grad, dtype=torch.float64).to(
+        reference.device).contiguous()
+    if t.shape != (3, 3):
+        raise ValueError(f"t_grad: expected (3, 3), got {tuple(t.shape)}")
+    qrows = torch.empty((reference.numel(), 2), dtype=torch.int32,
+                        device=reference.device)
+    nx, ny, nz = reference.shape
+    _cuda.call("pb_neargrid_qrows", reference.data_ptr(), codes.data_ptr(),
+               t.data_ptr(), qrows.data_ptr(), nx, ny, nz, int(strict_grad),
+               reference.device.index or 0, _cuda.stream(reference))
+    _cuda.launches["neargrid_qrows"] += 1
+    return qrows
+
+
+def _sext19(v):
+    return ((v & 0x7FFFF) ^ 0x40000) - 0x40000
+
+
+def _q_decode(w0, w1):
+    """The three signed 19-bit components of int64 q-row words."""
+    return (_sext19(w0),
+            _sext19(((w0 >> 19) & 0x1FFF) | ((w1 & 0x3F) << 13)),
+            _sext19(w1 >> 6))
+
+
+# ------------------------------------------------------------------ q walk
+def init_state(starts: torch.Tensor, screened: bool = False):
+    """JAX's ``_init_state`` for q walks: (pos, prev, hist (K, 3), dr
+    (K, 3) f32, done), plus (err f32, risky) when ``screened``.  A -1
+    start is a padding lane, born done at voxel 0."""
+    starts = starts.reshape(-1)
+    k, dev = starts.numel(), starts.device
+    state = (starts.clamp(min=0).to(torch.int32),
+             torch.full((k,), -1, dtype=torch.int32, device=dev),
+             torch.full((k, 3), -1, dtype=torch.int32, device=dev),
+             torch.zeros((k, 3), dtype=torch.float32, device=dev),
+             starts < 0)
+    if screened:
+        state += (torch.zeros(k, dtype=torch.float32, device=dev),
+                  torch.zeros(k, dtype=torch.bool, device=dev))
+    return state
+
+
+def neargrid_walk_q(qrows: torch.Tensor, state, shape, max_steps: int,
+                    known: torch.Tensor | None = None):
+    """Resume quantised-row walks for up to ``max_steps`` steps.
+
+    JAX's ``_walk_segment_q`` for a 5-field ``state`` (:func:`init_state`)
+    and the screened ``_walk_segment_qs`` for a 7-field one: a lane stops
+    on a maximum (code 13) or a ``known == 2`` voxel; otherwise it steps
+    by the rounded dequantised gradient plus the rounded f32 remainder
+    ``dr``, and an ongrid flag or a revisit of pos, prev or the history
+    steps by the ongrid code instead and resets ``dr``.  The screened walk
+    also carries ``err``, a bound on ``|dr_q - dr_exact|`` that grows by
+    :data:`QS_EPS` a step, and sets ``risky`` once a rounding decision
+    comes within it of its 0.5 threshold.  After the last step one more
+    fetch decides ``done``.  Returns the new state; the input is kept.
+    """
+    if _cuda.on_cuda(qrows):
+        return neargrid_walk_q_cuda(qrows, state, shape, max_steps, known)
+    return neargrid_walk_q_plain(qrows, state, shape, max_steps, known)
+
+
+def _round_away32(x):
+    """round_away in the operand's precision: trunc(x +- 0.5)."""
+    return torch.trunc(torch.where(x > 0, x + 0.5, x - 0.5))
+
+
+def _q_fetch(qrows, known, pos):
+    """(w0, w1 as int64, stop) of the q-rows at flat positions ``pos``."""
+    w = qrows[pos].long()
+    w0, w1 = w[:, 0], w[:, 1]
+    stop = ((w1 >> Q_CODE_SHIFT) & 31) == 13
+    if known is not None:
+        stop |= known.reshape(-1)[pos] == 2
+    return w0, w1, stop
+
+
+def _q_step(w0, w1, pos, prev, hist, dr, shape):
+    """One q-walk step of lanes that did not stop at ``pos`` (int64).
+
+    returns (next position, dr after the step, reset, ongrid, dr_new
+    before its rounding, g) -- the last three for the screen.  f32
+    arithmetic, each op rounded on its own, in JAX's order."""
+    nx, ny, nz = shape
+    code = (w1 >> Q_CODE_SHIFT) & 31
+    ongrid = (w1 & Q_ONGRID_BIT) != 0
+    g = torch.stack(_q_decode(w0, w1), 1).to(torch.float32) * _INV_SCALE
+    dims = torch.tensor([nx, ny, nz], device=pos.device)
+    xyz = torch.stack([pos // (ny * nz), (pos // nz) % ny, pos % nz], 1)
+    off = torch.stack([code // 9 - 1, (code // 3) % 3 - 1, code % 3 - 1], 1)
+    t = torch.remainder(xyz + off, dims)
+    og_next = (t[:, 0] * ny + t[:, 1]) * nz + t[:, 2]
+    ig = _round_away32(g)
+    dr_new = (dr + g) - ig
+    idr = _round_away32(dr_new)
+    dr_after = dr_new - idr
+    t = torch.remainder(xyz + ig.long() + idr.long(), dims)
+    nxt = (t[:, 0] * ny + t[:, 1]) * nz + t[:, 2]
+    nxt = torch.where(ongrid, og_next, nxt)
+    revisit = (nxt == pos) | (nxt == prev) | (nxt[:, None] == hist).any(1)
+    nxt = torch.where(revisit, og_next, nxt)
+    reset = ongrid | revisit
+    dr_after = torch.where(reset[:, None], 0.0, dr_after)
+    return nxt, dr_after, reset, ongrid, dr_new, g
+
+
+def neargrid_walk_q_plain(qrows, state, shape, max_steps: int, known=None,
+                          stats=None, origin=None):
+    """Plain PyTorch :func:`neargrid_walk_q`: live lanes step in lockstep
+    and leave the batch as they finish.  ``stats``, if a dict, receives
+    ``lane_steps`` and ``rows_touched`` as :func:`neargrid_walk_plain`
+    counts them.
+
+    ``origin``: optional (K, 3) int64 corner of the 16x16x128 block each
+    lane may walk in, with -1 rows for lanes that must not move (the block
+    round of :mod:`pybader_tpu_torch.ops.block_walk`).  A lane then stops
+    for the round once it is outside its block, and no fetch follows the
+    last step."""
+    from pybader_tpu_torch.ops.block_walk import BX, BY, BZ
+
+    nx, ny, nz = shape
+    out = [a.clone() for a in state]
+    screened = len(out) == 7
+    done = out[4]
+    lane = torch.nonzero(~done).reshape(-1)
+    cur = [out[0][lane].long(), out[1][lane].long(), out[2][lane].long(),
+           out[3][lane]]
+    if screened:
+        cur += [out[5][lane], out[6][lane]]
+    org = None if origin is None else origin[lane]
+    touched = None if stats is None else torch.zeros(
+        qrows.shape[0], dtype=torch.bool, device=qrows.device)
+    lane_steps = 0
+
+    def retire(mask):
+        nonlocal lane, cur, org
+        idx = lane[mask]
+        for j, slot in enumerate((0, 1, 2, 3, 5, 6)[:len(cur)]):
+            out[slot][idx] = cur[j][mask].to(out[slot].dtype)
+        keep = ~mask
+        lane, cur = lane[keep], [c[keep] for c in cur]
+        if org is not None:
+            org = org[keep]
+
+    for step in range(max_steps + 1):
+        if org is not None:
+            p = cur[0]
+            loc = torch.stack([p // (ny * nz), (p // nz) % ny, p % nz],
+                              1) - org
+            lim = torch.tensor([BX, BY, BZ], device=p.device)
+            inside = ((org[:, 0] >= 0) & (loc >= 0).all(1)
+                      & (loc < lim).all(1))
+            retire(~inside)
+            if step == max_steps:
+                break
+        if touched is not None:
+            touched[cur[0]] = True
+        w0, w1, stop = _q_fetch(qrows, known, cur[0])
+        done[lane[stop]] = True
+        retire(stop)
+        w0, w1 = w0[~stop], w1[~stop]
+        if step == max_steps or lane.numel() == 0:
+            break
+        lane_steps += lane.numel()
+        pos, prev, hist, dr = cur[:4]
+        nxt, dr_after, reset, ongrid, dr_new, g = _q_step(
+            w0, w1, pos, prev, hist, dr, shape)
+        cur[:4] = [nxt, pos, torch.cat([prev[:, None], hist[:, :2]], 1),
+                   dr_after]
+        if screened:
+            err = cur[4]
+            d_g = (g.abs() - 0.5).abs().amin(1)
+            d_dr = (dr_new.abs() - 0.5).abs().amin(1)
+            risky_step = (d_g < QS_EPS) | (d_dr < err + QS_EPS)
+            cur[5] = cur[5] | (risky_step & ~ongrid)
+            cur[4] = torch.where(reset, 0.0, err + QS_EPS)
+    retire(torch.ones(lane.numel(), dtype=torch.bool, device=lane.device))
+    if stats is not None:
+        stats["lane_steps"] = lane_steps
+        stats["rows_touched"] = int(touched.sum())
+    return tuple(out)
+
+
+def check_q_state(qrows, state, shape, known):
+    """Validate q-rows, a walk state and the optional known grid for a
+    kernel; returns the copied state, which the kernel updates in place."""
+    n = int(np.prod(shape))
+    _cuda.check(qrows, torch.int32, "qrows", (n, 2), per_voxel=2)
+    if len(state) not in (5, 7):
+        raise ValueError(f"state: expected 5 or 7 arrays, got {len(state)}")
+    k = state[0].numel()
+    kinds = [(torch.int32, (k,)), (torch.int32, (k,)), (torch.int32, (k, 3)),
+             (torch.float32, (k, 3)), (torch.bool, (k,)),
+             (torch.float32, (k,)), (torch.bool, (k,))]
+    names = ("pos", "prev", "hist", "dr", "done", "err", "risky")
+    for a, (dtype, shp), name in zip(state, kinds, names):
+        _cuda.check(a, dtype, name, shp)
+    if known is not None:
+        _cuda.check(known, torch.int8, "known", shape)
+    if k:
+        lo, hi = torch.aminmax(state[0])
+        if int(lo) < 0 or int(hi) >= n:
+            raise ValueError(f"pos: flat indices must lie in [0, {n})")
+    return tuple(a.clone() for a in state)
+
+
+def neargrid_walk_q_cuda(qrows, state, shape, max_steps: int, known=None):
+    """Launch ``pb_neargrid_walk_q`` (csrc/neargrid.cu) on a copy of the
+    state."""
+    out = check_q_state(qrows, state, shape, known)
+    screened = len(out) == 7
+    nx, ny, nz = shape
+    _cuda.call("pb_neargrid_walk_q", qrows.data_ptr(),
+               None if known is None else known.data_ptr(),
+               *(a.data_ptr() for a in out[:5]),
+               out[5].data_ptr() if screened else None,
+               out[6].data_ptr() if screened else None,
+               out[0].numel(), nx, ny, nz, int(max_steps),
+               qrows.device.index or 0, _cuda.stream(qrows))
+    _cuda.launches["neargrid_walk_q"] += 1
+    return out
+
+
+# ------------------------------------------------------------ walk loops
+_FINE_BUCKET_FLOOR = 1 << 22
+
+
+def bucket_size(n: int, min_batch: int = 4096) -> int:
+    """JAX's ``_bucket_size`` ladder: the smallest of 2^k and 3*2^k (and,
+    from 2^22 lanes unless ``PYBADER_TPU_FINE_BUCKETS=0``, 5*2^k and
+    7*2^k) that holds ``max(n, min_batch)``.  Padded lane counts decide
+    the block rounds, so the port keeps the ladder."""
+    n = max(int(n), min_batch)
+    bl = (n - 1).bit_length()
+    p2 = 1 << bl
+    cands = [p2, 3 << max(bl - 2, 0)]
+    if os.environ.get("PYBADER_TPU_FINE_BUCKETS", "1") == "1" \
+            and n >= _FINE_BUCKET_FLOOR:
+        cands += [5 << max(bl - 3, 0), 7 << max(bl - 3, 0)]
+    return min(c for c in cands if n <= c)
+
+
+def pad_to(starts: torch.Tensor, size: int) -> torch.Tensor:
+    """``starts`` followed by -1 padding lanes up to ``size``."""
+    out = torch.full((size,), -1, dtype=torch.int32, device=starts.device)
+    out[:starts.numel()] = starts
+    return out
+
+
+def padded_size(n: int, min_size: int = 4096) -> int:
+    """The length JAX's ``pad_starts`` gives ``n`` starts: the next power
+    of two, at least ``min_size``."""
+    return max(min_size, 1 << (max(n, 1) - 1).bit_length())
+
+
+def pad_starts(starts: torch.Tensor, min_size: int = 4096) -> torch.Tensor:
+    """JAX's ``pad_starts``: -1 padding up to :func:`padded_size`."""
+    return pad_to(starts, padded_size(starts.numel(), min_size))
+
+
+def walk_q(qrows, starts, shape, max_steps: int, known=None,
+           screened: bool = False, stats=None):
+    """JAX's ``walk_drain`` on quantised rows.
+
+    The block phase runs first where :func:`block_walk.enabled` says so;
+    its steps do not count, and the q walker then finishes every lane with
+    the full ``max_steps`` budget.  ``starts`` is the padded start list
+    (-1 lanes are born done); its length decides the block rounds.
+    ``stats``, if a dict, collects the block rounds (``block_rounds``: one
+    list of live-lane counts a round per walk).  returns (pos, done), and
+    risky when ``screened``.
+    """
+    from pybader_tpu_torch.ops import block_walk
+
+    state = init_state(starts, screened)
+    if block_walk.enabled(shape, starts.numel()):
+        state = block_walk.block_phase(qrows, state, shape, known,
+                                       stats=stats)
+    state = neargrid_walk_q(qrows, state, shape, max_steps, known)
+    return (state[0], state[4], state[6]) if screened else \
+        (state[0], state[4])
+
+
+def walk_screened(qrows, exact_rows, starts, shape, max_steps: int,
+                  known=None, stats=None):
+    """JAX's ``walk_drain_screened``: the screened q walk, then the lanes
+    it could not prove exact walked again from their start on the exact
+    rows with a fresh cap.
+
+    The re-walk takes the first ``bucket_size(n_risky, 4096)`` lanes of a
+    stable sort that puts the risky ones first, so some unflagged lanes are
+    walked again too, as in JAX (with the block phase on, that can change a
+    capped lane's end point).  ``exact_rows``: a callable giving the exact
+    rows, built only when a lane is risky.  ``stats['risky']`` receives the
+    risky count.  returns (pos, done).
+    """
+    pos, done, risky = walk_q(qrows, starts, shape, max_steps, known,
+                              screened=True, stats=stats)
+    n_risky = int(risky.sum())
+    if stats is not None:
+        stats["risky"] = n_risky
+    if n_risky == 0:
+        return pos, done
+    size = bucket_size(n_risky, 4096)
+    sel = torch.argsort((~risky).to(torch.int8), stable=True)[:size]
+    rpos, rdone = neargrid_walk(exact_rows(), starts[sel].contiguous(),
+                                shape, max_steps, known)
+    pos[sel] = rpos
+    done[sel] = rdone
     return pos, done

@@ -1,15 +1,28 @@
 """Partitioning pipelines.
 
 Port of :mod:`pybader_tpu.pipeline`: the ongrid and neargrid partitions and
-neargrid edge refinement, each stage on the device of the input.  The JAX
-package's TPU scheduling (the walker's drain loop, chunks and quantised
-rows, the candidate-list switch, the roots compaction above 4096 maxima)
-gives the same labels as the exact formulation ported here.
+neargrid edge refinement, each stage on the device of the input, with the
+hybrid's opt-in variants: the neargrid-first-step init
+(``PYBADER_TPU_HYBRID_INIT=nginit``), the quantised-row modes
+(``PYBADER_TPU_QROWS=screened|internal|all|off``), the block phase
+(``PYBADER_TPU_BLOCK_WALK=1``, ``PYBADER_TPU_BLOCK_STEPS``) and the
+internal step cap (``PYBADER_TPU_INTERNAL_CAP``).  The JAX package's other
+TPU scheduling (the drain loop's segments and compaction, the
+candidate-list switch, the roots compaction above 4096 maxima) gives the
+same labels as the formulation ported here.
 
-Not ported (ROADMAP Queue 1): the neargrid-first-step hybrid init
-(``PYBADER_TPU_HYBRID_INIT=nginit``), the unscreened quantised-row modes
-(``PYBADER_TPU_QROWS``), ``PYBADER_TPU_INTERNAL_CAP``,
-``PYBADER_TPU_F32_ROWS`` and ``PYBADER_TPU_BLOCK_WALK``.
+Row formats.  Where the JAX package walks screened quantised rows without
+the block phase (its default), the port walks the exact rows: the screen
+makes the two bit-identical.  The quantised-row walkers run only where
+their result differs from the exact walk's: the unscreened modes
+(``QROWS=internal|all``, unscreened walks on CPU tensors only with
+``PYBADER_TPU_QROWS_CPU=1``, as in JAX), and any walk on which the block
+phase runs, since its steps do not count toward the step cap.
+
+Not ported (ROADMAP Queue 1): ``PYBADER_TPU_F32_ROWS``, which the JAX
+package ignores on the CPU and so has no reference there, and the drain
+knobs that leave results unchanged (``PYBADER_TPU_SEGMENTS``,
+``_GATHER_RATE``, ``_COUNT_RTT``, ``_SORT_COMPACT``, ``_DRAIN_TRACE``).
 """
 from __future__ import annotations
 
@@ -19,11 +32,11 @@ import time
 import numpy as np
 import torch
 
-from pybader_tpu_torch.ops import neargrid, reductions
+from pybader_tpu_torch.ops import block_walk, neargrid, reductions
 from pybader_tpu_torch.ops.edges import edge_check, edge_find
 from pybader_tpu_torch.ops.pointer import labels_flood, resolve_roots
 from pybader_tpu_torch.ops.stencil import (
-    ongrid_step_codes, parent_from_step_codes,
+    neargrid_init_codes, ongrid_step_codes, parent_from_step_codes,
 )
 
 METHODS = ["ongrid", "neargrid"]
@@ -35,6 +48,14 @@ REFINEMENT_METHODS = ["neargrid"]
 _NEARGRID_HYBRID_THRESHOLD = 1 << 24
 # Internal refinement iterations of the hybrid per 128 voxels of extent.
 _HYBRID_ITERS_PER_128 = 3
+# Internal refinement on top of the nginit init (JAX _NGINIT_HYBRID_REFINE).
+_NGINIT_HYBRID_REFINE = ("changed", 1)
+# Starts a full-trajectory q walk takes at once (JAX _WALK_BATCH): the
+# batches decide which lanes share the block rounds.
+_WALK_BATCH = 1 << 21
+# Largest lane bucket a refinement q walk takes at once (JAX
+# _WALK_CHUNK_CAP); larger buckets walk in chunks of this size.
+_WALK_CHUNK_CAP = 1 << 23
 
 
 def step_codes(reference: torch.Tensor, vacuum: torch.Tensor | None,
@@ -88,7 +109,27 @@ def partition_ongrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
         (labels int32 tensor [-1 vacuum, 0..M-1 basins],
          maxima (M, 3) int64 numpy voxel indices in discovery order)
     """
-    bk = step_codes(reference, vacuum, weights)
+    return _partition_codes(step_codes(reference, vacuum, weights), vacuum,
+                            progress)
+
+
+def partition_nginit(reference: torch.Tensor, vacuum: torch.Tensor | None,
+                     weights, t_grad, progress=None):
+    """The hybrid's nginit init (JAX ``_partition_nginit``): the ongrid
+    partition's flow on :func:`neargrid_init_codes` codes, each voxel's
+    first neargrid step where it strictly ascends, else its ongrid step.
+    Roots, maxima and numbering are the ongrid partition's."""
+    bk = neargrid_init_codes(reference, ongrid_step_codes(reference, weights),
+                             t_grad)
+    if vacuum is not None:
+        bk = torch.where(vacuum, torch.tensor(13, dtype=torch.uint8,
+                                              device=bk.device), bk)
+    return _partition_codes(bk, vacuum, progress)
+
+
+def _partition_codes(bk, vacuum, progress):
+    """Flood labels from step codes and renumber them to discovery
+    order."""
     labels_mo, n_max = labels_flood(bk, vacuum)
     if progress is not None:
         progress(f"{n_max} maxima")
@@ -145,56 +186,135 @@ def partition_neargrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
     (the JAX package's order-free form of the reference method); lanes
     still walking at the step cap resolve through their ongrid root.  On
     grids above 2**24 voxels, or with ``full_trajectories=False``, the
-    hybrid runs instead: the ongrid partition, then
-    :func:`hybrid_internal_budget` iterations of 'changed' refinement, whose
-    continuation state goes to ``carry_out`` so that a following
-    ``refine_labels(..., carry_in=carry_out)`` chains on.
+    hybrid runs instead: the ongrid partition (or, with
+    ``PYBADER_TPU_HYBRID_INIT=nginit``, :func:`partition_nginit`), then
+    internal 'changed' refinement, :func:`hybrid_internal_budget`
+    iterations (one after nginit), whose continuation state goes to
+    ``carry_out`` so that a following ``refine_labels(...,
+    carry_in=carry_out)`` chains on.
 
-    ``PYBADER_TPU_FULL_TRAJECTORIES`` (0/off/false or anything else) picks
-    the path when ``full_trajectories`` is None; ``PYBADER_TPU_INTERNAL_ITERS``
-    overrides the hybrid's internal depth (-1: to convergence).
-    ``stats``, if a dict, receives ``cap_fires`` (full trajectories) or the
-    internal refinement's ``iterations`` (hybrid).
+    Environment, read at call time: ``PYBADER_TPU_FULL_TRAJECTORIES``
+    (0/off/false or anything else) picks the path when
+    ``full_trajectories`` is None; ``PYBADER_TPU_INTERNAL_ITERS`` overrides
+    the hybrid's internal depth (-1: to convergence);
+    ``PYBADER_TPU_INTERNAL_CAP`` caps its internal walks' steps;
+    ``PYBADER_TPU_QROWS=internal|all`` walks them on unscreened q-rows,
+    ``off`` on exact rows; ``PYBADER_TPU_BLOCK_WALK=1`` runs the block
+    phase on q walks (full trajectories too, in JAX's batches of 2^21
+    starts).  ``stats``, if a dict, receives ``cap_fires`` (full
+    trajectories) or the internal refinement's ``iterations`` (hybrid),
+    and ``block_rounds`` where the block phase ran.
 
     returns (labels int32 tensor, maxima (M, 3) int64 numpy)
     """
     shape = tuple(reference.shape)
     n = reference.numel()
+    env = os.environ.get
     if full_trajectories is None:
-        env = os.environ.get("PYBADER_TPU_FULL_TRAJECTORIES")
-        if env is not None:
-            full_trajectories = env.lower() not in ("0", "off", "false")
+        if env("PYBADER_TPU_FULL_TRAJECTORIES") is not None:
+            full_trajectories = env("PYBADER_TPU_FULL_TRAJECTORIES").lower() \
+                not in ("0", "off", "false")
         else:
             full_trajectories = n <= _NEARGRID_HYBRID_THRESHOLD
     if not full_trajectories:
-        labels, maxima = partition_ongrid(reference, vacuum, weights,
-                                          progress)
-        internal = hybrid_internal_budget(shape)
-        env_it = os.environ.get("PYBADER_TPU_INTERNAL_ITERS")
-        if env_it is not None:
-            internal = ("changed", int(env_it))
+        if env("PYBADER_TPU_HYBRID_INIT", "ongrid") == "nginit":
+            labels, maxima = partition_nginit(reference, vacuum, weights,
+                                              t_grad, progress)
+            internal = _NGINIT_HYBRID_REFINE
+        else:
+            labels, maxima = partition_ongrid(reference, vacuum, weights,
+                                              progress)
+            internal = hybrid_internal_budget(shape)
+        if env("PYBADER_TPU_INTERNAL_ITERS") is not None:
+            internal = ("changed", int(env("PYBADER_TPU_INTERNAL_ITERS")))
+        quantized = {"off": False, "internal": "q", "all": "q"}.get(
+            env("PYBADER_TPU_QROWS", "screened"), "qs")
+        step_cap = int(env("PYBADER_TPU_INTERNAL_CAP", "0")) or None
         # refinement moves edge voxels between the existing basins: the
-        # numbering and the maxima stay those of the ongrid partition
+        # numbering and the maxima stay those of the init
         labels, _ = refine_labels(
             "neargrid", internal, reference, labels, weights, t_grad,
             verbose=False, progress=progress, carry_out=carry_out,
-            stats=stats)
+            stats=stats, quantized=quantized, step_cap=step_cap)
         return labels, maxima
     bk = step_codes(reference, vacuum, weights)
-    rows = neargrid.neargrid_rows(reference, bk, t_grad, strict_grad=False)
+    cap = neargrid.initial_cap(shape)
     if progress is not None:
         progress(f"walking {n} trajectories")
-    starts = torch.arange(n, dtype=torch.int32, device=reference.device)
-    pos, done = neargrid.neargrid_walk(rows, starts, shape,
-                                       neargrid.initial_cap(shape))
-    del rows
+    wstat = {} if stats is not None else None
+    n_starts = n if vacuum is None else int((~vacuum).sum())
+    if env("PYBADER_TPU_QROWS", "screened") != "off" and block_walk.enabled(
+            shape, neargrid.padded_size(min(n_starts, _WALK_BATCH))):
+        pos, done = _walk_all_screened(reference, vacuum, bk, t_grad, shape,
+                                       cap, wstat)
+    else:
+        rows = neargrid.neargrid_rows(reference, bk, t_grad,
+                                      strict_grad=False)
+        starts = torch.arange(n, dtype=torch.int32, device=reference.device)
+        pos, done = neargrid.neargrid_walk(rows, starts, shape, cap)
+        del rows
     n_capped = int((~done).sum())
     if n_capped:
         roots = resolve_roots(parent_from_step_codes(bk)).reshape(-1)
         pos = torch.where(done, pos, roots[pos.long()])
     if stats is not None:
         stats["cap_fires"] = n_capped
+        if "block_rounds" in wstat:
+            stats["block_rounds"] = wstat["block_rounds"]
     return label_from_roots(pos.reshape(shape), vacuum)
+
+
+def _walk_all_screened(reference, vacuum, bk, t_grad, shape, cap, stats):
+    """Every non-vacuum voxel's screened q walk with the block phase, in
+    JAX's batches (``pad_starts`` of 2^21 starts); vacuum voxels end on
+    themselves.  returns (pos, done) over the whole grid."""
+    n = reference.numel()
+    dev = reference.device
+    qrows = neargrid.neargrid_qrows(reference, bk, t_grad, strict_grad=False)
+    exact = _Lazy(neargrid.neargrid_rows, reference, bk, t_grad, False)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    done = torch.ones(n, dtype=torch.bool, device=dev)
+    starts_all = pos.clone() if vacuum is None else torch.nonzero(
+        ~vacuum.reshape(-1)).reshape(-1).to(torch.int32)
+    for chunk in starts_all.split(_WALK_BATCH):
+        p, d = neargrid.walk_screened(
+            qrows, exact, neargrid.pad_starts(chunk), shape, cap,
+            stats=stats)
+        idx = chunk.long()
+        pos[idx] = p[:chunk.numel()]
+        done[idx] = d[:chunk.numel()]
+    return pos, done
+
+
+class _Lazy:
+    """Walk rows built at the first call, kept afterwards: the screened
+    walk needs exact rows only if a lane is risky, and a refinement builds
+    only the formats its walks use.  ``value``: rows already built."""
+
+    def __init__(self, build, *args, value=None):
+        self.build, self.args, self.value = build, args, value
+
+    def __call__(self):
+        if self.value is None:
+            self.value = self.build(*self.args)
+        return self.value
+
+
+def _row_format(quantized, reference) -> str:
+    """The walk-row format of a refinement: 'exact', 'q' (unscreened
+    quantised rows) or 'qs' (screened).  ``quantized=None`` reads
+    ``PYBADER_TPU_QROWS`` (screened -> 'qs', all -> 'q', else exact);
+    True means 'q'.  Unscreened walks of CPU tensors need
+    ``PYBADER_TPU_QROWS_CPU=1``, as JAX's CPU backend does."""
+    if quantized is None:
+        quantized = {"screened": "qs", "all": "q"}.get(
+            os.environ.get("PYBADER_TPU_QROWS", "screened"), False)
+    if quantized is True:
+        quantized = "q"
+    if quantized == "q" and reference.device.type == "cpu" and \
+            os.environ.get("PYBADER_TPU_QROWS_CPU") != "1":
+        quantized = False
+    return quantized or "exact"
 
 
 def refinement_runs(method: str, refine_mode) -> bool:
@@ -206,7 +326,8 @@ def refinement_runs(method: str, refine_mode) -> bool:
 
 def refine_labels(method: str, refine_mode, reference, labels, weights,
                   t_grad, verbose: bool = True, progress=None, stats=None,
-                  carry_in=None, carry_out=None):
+                  carry_in=None, carry_out=None, quantized=None,
+                  step_cap: int | None = None):
     """Iterative neargrid edge refinement.
 
     Iteration 1 walks every edge voxel (``edge_find``); later iterations
@@ -215,18 +336,29 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
     iterations or until nothing changes (``iters < 0``: to convergence).
     Unknown methods and ``iters == 0`` return the labels untouched.
 
+    ``quantized`` picks the walk rows (:func:`_row_format`): 'qs', 'q',
+    False, or None for ``PYBADER_TPU_QROWS``.  Quantised walks take JAX's
+    padded buckets (:func:`neargrid.bucket_size`, chunks of 2^23 lanes),
+    since the padded lane count decides the block rounds.  ``step_cap``
+    replaces the refinement cap (:func:`neargrid.refine_cap`); lanes past
+    it resolve through their ongrid root.
+
     ``carry_in`` / ``carry_out`` chain successive 'changed' calls on the
     same labels into one sequence: a call given ``carry_out`` runs the
     ``edge_check`` after its last iteration and leaves its step codes,
-    local-maximum mask, walk rows and ``known`` grid there, or
+    local-maximum mask, ``known`` grid and whichever walk rows it built
+    (``rows`` exact, ``qrows`` quantised, None if not built) there, or
     ``converged`` when it converged; a call given that dict as
-    ``carry_in`` resumes from it (and returns at once after convergence).
-    Both are ignored in 'all' mode.
+    ``carry_in`` resumes from it, building the rows its format needs that
+    the carry lacks (and returns at once after convergence).  Both are
+    ignored in 'all' mode.
 
     ``stats``, if a dict, receives ``iterations``: one (edges walked,
-    changed, step-cap fires, 0, seconds) tuple per iteration (the JAX
-    package's fourth field counts quantised-row re-walks, which the port
-    has none of).
+    changed, step-cap fires, risky lanes, seconds) tuple per iteration.
+    The risky lanes are those of the screened q walks the port runs (with
+    the block phase); where it walks exact rows in their place the count
+    is 0.  ``stats['block_rounds']`` gets, per iteration, the live-lane
+    counts after each block round of each walk.
 
     ``reference``, ``labels`` and ``t_grad`` are tensors on one device
     (``t_grad`` may also be numpy).  returns (labels, total_changed).
@@ -240,23 +372,29 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
     if carry_in is not None and carry_in.get("converged"):
         return labels, 0
     shape = tuple(reference.shape)
+    kind = _row_format(quantized, reference)
     labels = labels.to(torch.int32).clone()  # updated in place below
     if carry_in is not None and "known" in carry_in:
-        bk, is_max = carry_in["bk"], carry_in["is_max"]
-        rows, known = carry_in["rows"], carry_in["known"]
+        bk, is_max, known = carry_in["bk"], carry_in["is_max"], \
+            carry_in["known"]
+        rows, qrows = carry_in.get("rows"), carry_in.get("qrows")
     else:
         vac = labels == -1
         bk = step_codes(reference, vac, weights)
-        rows = neargrid.neargrid_rows(reference, bk, t_grad,
-                                      strict_grad=True)
         is_max = (bk == 13) & ~vac
         known = edge_find(reference, labels, is_max)
-    cap = neargrid.refine_cap(shape)
+        rows = qrows = None
+    exact = _Lazy(neargrid.neargrid_rows, reference, bk, t_grad, True,
+                  value=rows)
+    quant = _Lazy(neargrid.neargrid_qrows, reference, bk, t_grad, True,
+                  value=qrows)
+    cap = neargrid.refine_cap(shape) if step_cap is None else step_cap
     roots = None  # resolved on the first step-cap fire
     total_changed = 0
     converged = False
     if stats is not None:
         stats["iterations"] = []
+        stats["block_rounds"] = []
     t_iter = time.perf_counter()
     it = 0
     while it < max_iters:
@@ -273,7 +411,13 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
             print(f"  Iteration {it}: refining {n_edges} edges")
         if progress is not None:
             progress(f"iteration {it}: walking {n_edges} edges")
-        pos, done = neargrid.neargrid_walk(rows, starts, shape, cap, known)
+        wstat = {}
+        if kind == "exact":
+            pos, done = neargrid.neargrid_walk(exact(), starts, shape, cap,
+                                               known)
+        else:
+            pos, done = _walk_padded(kind, quant, exact, starts, shape, cap,
+                                     known, wstat)
         n_capped = int((~done).sum())
         if n_capped:
             # step-cap stragglers resolve through their ongrid root
@@ -288,7 +432,9 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
         if stats is not None:
             now = time.perf_counter()
             stats["iterations"].append(
-                (n_edges, changed, n_capped, 0, round(now - t_iter, 3)))
+                (n_edges, changed, n_capped, wstat.get("risky", 0),
+                 round(now - t_iter, 3)))
+            stats["block_rounds"].append(wstat.get("block_rounds", []))
             t_iter = now
         if verbose:
             print(f"  {changed} points changed.")
@@ -305,8 +451,40 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
         if converged:
             carry_out["converged"] = True
         else:
-            carry_out.update(known=known, bk=bk, is_max=is_max, rows=rows)
+            carry_out.update(known=known, bk=bk, is_max=is_max,
+                             rows=exact.value, qrows=quant.value)
     return labels, total_changed
+
+
+def _walk_padded(kind, quant, exact, starts, shape, cap, known, stats):
+    """One refinement walk in JAX's padded buckets and chunks.
+
+    'q' walks the unscreened q-rows; 'qs' walks a chunk screened (risky
+    lanes again on the exact rows) where the block phase runs on it, and
+    on the exact rows otherwise, which gives the same result.  ``quant``
+    and ``exact`` build the rows on first use.  ``stats`` sums the risky
+    counts and collects the block rounds.  returns (pos, done) of the
+    unpadded starts."""
+    n_edges = starts.numel()
+    padded = neargrid.pad_to(starts, neargrid.bucket_size(n_edges))
+    parts = []
+    for chunk in padded.split(_WALK_CHUNK_CAP):
+        wstat = {}
+        if kind == "q":
+            parts.append(neargrid.walk_q(quant(), chunk, shape, cap, known,
+                                         stats=wstat))
+        elif block_walk.enabled(shape, chunk.numel()):
+            parts.append(neargrid.walk_screened(quant(), exact, chunk, shape,
+                                                cap, known, stats=wstat))
+        else:
+            parts.append(neargrid.neargrid_walk(exact(), chunk, shape, cap,
+                                                known))
+        stats["risky"] = stats.get("risky", 0) + wstat.get("risky", 0)
+        stats.setdefault("block_rounds", []).extend(
+            wstat.get("block_rounds", []))
+    pos = torch.cat([p for p, _ in parts])[:n_edges]
+    done = torch.cat([d for _, d in parts])[:n_edges]
+    return pos, done
 
 
 def _apply_walk_results(labels, known, starts, pos) -> int:

@@ -1,0 +1,156 @@
+"""Parity: the port's block phase (the TPU's in-VMEM block walker) against
+the JAX package, whose Pallas kernel runs in interpret mode on the CPU.
+
+Tolerance: none.  Which lanes step in a round follows from integer rules
+(the stable sort by block, 1024-lane tiles, each tile's median lane), and
+the steps are f32 with every op rounded on its own in both packages, so
+every state word (f32 ``dr`` and ``err`` bit for bit) and the round count
+must be identical.  The field is the conforming 32x32x128 grid of
+``tests/test_block_walk.py``; the JAX module reads its switches at import,
+so the tests set ``_ENABLED`` and ``_MIN_LANES`` on it and the environment
+and ``_MIN_LANES`` for the port.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pybader_tpu.ops import block_walk as jbw
+from pybader_tpu.ops import neargrid as jng
+from pybader_tpu_torch.ops import block_walk as tbw
+from pybader_tpu_torch.ops import neargrid as tng
+from tests.test_block_walk import SHAPE, _fixture
+from tests.test_torch_qrows import assert_state_equal
+
+torch.set_num_threads(1)
+
+
+def fixture(seed=0):
+    """JAX's q-rows with a random stop set baked in, the same rows without
+    it and the stop set as a known grid, and 3000 padded starts."""
+    q_baked, padded, tg = _fixture(seed)
+    q = np.array(q_baked)
+    known = np.where(q[:, 1] < 0, 2, 0).astype(np.int8).reshape(SHAPE)
+    q[:, 1] &= 0x7FFFFFFF
+    return q_baked, torch.from_numpy(q), torch.from_numpy(known), \
+        np.asarray(padded), tg
+
+
+def enable(monkeypatch, min_lanes=256):
+    monkeypatch.setattr(jbw, "_ENABLED", True)
+    monkeypatch.setattr(jbw, "_MIN_LANES", min_lanes)
+    monkeypatch.setenv("PYBADER_TPU_BLOCK_WALK", "1")
+    monkeypatch.setattr(tbw, "_MIN_LANES", min_lanes)
+
+
+@pytest.mark.parametrize("screened", [False, True])
+def test_prep_round_matches_jax(screened):
+    """Lane order, tile blocks and live flags of a round, on a state with
+    done lanes (the padding) and lanes spread over all blocks."""
+    q_baked, _, _, padded, _ = fixture(3)
+    state = jng._init_state(jnp.asarray(padded), jnp.float32,
+                            screened=screened)
+    k0 = padded.size
+    meta, _, order = jbw._prep_round(state, jnp.arange(k0, dtype=jnp.int32),
+                                     SHAPE, k0 // jbw._TILE, screened)
+    meta = np.asarray(meta)
+    got_order, blocks, live = tbw.prep_round(
+        tng.init_state(torch.from_numpy(padded), screened), SHAPE)
+    np.testing.assert_array_equal(got_order.numpy(), np.asarray(order))
+    np.testing.assert_array_equal(blocks.numpy(), meta & ((1 << 30) - 1))
+    np.testing.assert_array_equal(live.numpy(), (meta >> 30) != 0)
+    assert live.any() and not live.all()
+
+
+@pytest.mark.parametrize("screened", [False, True])
+@pytest.mark.parametrize("max_rounds", [1, 12])
+def test_block_phase_matches_jax(screened, max_rounds):
+    """One round, and a whole phase (min_alive low enough that rounds
+    repeat until the slow rule or the round cap ends them)."""
+    q_baked, q, known, padded, _ = fixture(0)
+    state = jng._init_state(jnp.asarray(padded), jnp.float32,
+                            screened=screened)
+    want, rounds = jbw.block_phase(state, q_baked, SHAPE, screened=screened,
+                                   max_rounds=max_rounds, min_alive=64)
+    stats = {}
+    got = tbw.block_phase(q, tng.init_state(torch.from_numpy(padded),
+                                            screened),
+                          SHAPE, known, max_rounds=max_rounds, min_alive=64,
+                          stats=stats)
+    assert_state_equal(want, got)
+    assert len(stats["block_rounds"][0]) == rounds
+    moved = got[0].numpy() != np.clip(padded, 0, None)
+    assert moved.any() and (~got[4]).sum() > 0
+
+
+@pytest.mark.parametrize("steps", [1, 5])
+def test_block_steps_env_matches_jax(monkeypatch, steps):
+    q_baked, q, known, padded, _ = fixture(1)
+    monkeypatch.setenv("PYBADER_TPU_BLOCK_STEPS", str(steps))
+    state = jng._init_state(jnp.asarray(padded), jnp.float32, screened=True)
+    want, _ = jbw.block_phase(state, q_baked, SHAPE, screened=True,
+                              steps=steps, max_rounds=3, min_alive=64)
+    got = tbw.block_phase(q, tng.init_state(torch.from_numpy(padded), True),
+                          SHAPE, known, max_rounds=3, min_alive=64)
+    assert_state_equal(want, got)
+
+
+@pytest.mark.parametrize("screened", [False, True])
+def test_walk_with_phase_equals_walk_without(monkeypatch, screened):
+    """Without a cap that fires, the block phase changes no result."""
+    _, q, known, padded, _ = fixture(0)
+    starts = torch.from_numpy(padded)
+    off = tng.walk_q(q, starts, SHAPE, 2000, known, screened=screened)
+    enable(monkeypatch)
+    stats = {}
+    on = tng.walk_q(q, starts, SHAPE, 2000, known, screened=screened,
+                    stats=stats)
+    assert stats["block_rounds"]
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("screened", [False, True])
+def test_capped_walk_with_phase_matches_jax(monkeypatch, screened):
+    """A cap of 2 fires on many lanes; block steps do not count toward it,
+    so the end points differ from the walk without the phase, as JAX's."""
+    q_baked, q, known, padded, tg = fixture(0)
+    enable(monkeypatch)
+    want = jng.walk_drain(jnp.asarray(padded), None, None, None,
+                          jnp.asarray(tg), SHAPE, strict_grad=True,
+                          max_steps=2, fields=q_baked, screened=screened)
+    got = tng.walk_q(q, torch.from_numpy(padded), SHAPE, 2, known,
+                     screened=screened)
+    assert_state_equal(want, got)
+    monkeypatch.setenv("PYBADER_TPU_BLOCK_WALK", "0")
+    plain = tng.walk_q(q, torch.from_numpy(padded), SHAPE, 2, known,
+                       screened=screened)
+    assert (~got[1]).sum() > 0
+    assert not torch.equal(plain[0], got[0])
+
+
+def test_phase_off_below_min_lanes_or_off_grid(monkeypatch):
+    enable(monkeypatch, min_lanes=1 << 17)
+    assert tbw.enabled(SHAPE, 1 << 17)
+    assert not tbw.enabled(SHAPE, (1 << 17) - 1)
+    assert not tbw.enabled((24, 20, 18), 1 << 20)
+    monkeypatch.setenv("PYBADER_TPU_BLOCK_WALK", "0")
+    assert not tbw.enabled(SHAPE, 1 << 20)
+    for shape in [(32, 32, 128), (24, 20, 18), (16, 48, 256)]:
+        assert tbw.conforms(shape) == jbw.conforms(shape)
+
+
+def test_phase_skips_a_lane_count_off_the_tile():
+    _, q, known, padded, _ = fixture(0)
+    state = tng.init_state(torch.from_numpy(padded[:1000]))
+    stats = {}
+    out = tbw.block_phase(q, state, SHAPE, known, stats=stats)
+    assert out is state and not stats
+
+
+def test_block_round_wrapper_rejects_cpu_tensors():
+    _, q, known, padded, _ = fixture(0)
+    state = tng.init_state(torch.from_numpy(padded))
+    order, blocks, live = tbw.prep_round(state, SHAPE)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tbw.block_round_cuda(q, state, blocks, live, SHAPE, 24, known)

@@ -23,7 +23,7 @@ def test_importing_every_port_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'pybader_tpu.')) or m == 'pybader_tpu')\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 14, mods\n"
+        "assert len(mods) >= 15, mods\n"
         "print(len(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -6,7 +6,11 @@ equal JAX's ``refine_labels`` stats for 'changed' and 'all' at 1, 2 and
 converged (-1) iterations, with and without vacuum; labels must equal
 ``oracle.refine_oracle``.  The hybrid's internal refinement chained into a
 user refinement through the carry must equal JAX's chain and one
-continuous 'changed' call.
+continuous 'changed' call, also under the environment variants
+(``PYBADER_TPU_QROWS``, ``_INTERNAL_CAP``, ``_BLOCK_WALK``,
+``_HYBRID_INIT``): labels, maxima and the per-iteration stats, the risky
+counts included wherever both packages walk quantised rows.  Tolerance:
+none, everything compared is integer.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -103,7 +107,7 @@ def test_hybrid_carry_chain_matches_jax_and_continuous():
     tl, _ = tpipe.partition_neargrid(rho_t, None, W, TG,
                                      full_trajectories=False,
                                      carry_out=carry_t)
-    assert set(carry_t) == {"known", "bk", "is_max", "rows"}
+    assert set(carry_t) == {"known", "bk", "is_max", "rows", "qrows"}
     tl, tc = tpipe.refine_labels("neargrid", ("changed", 2), rho_t, tl, W,
                                  TG, verbose=False, carry_in=carry_t)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
@@ -136,3 +140,124 @@ def test_refine_leaves_its_input_untouched():
                                        labels, W, TG, verbose=False)
     assert changed > 0 and not torch.equal(out, before)
     assert torch.equal(labels, before)
+
+
+def both_hybrids(rho, lattice=None, vac=None, fields=4):
+    """partition_neargrid's hybrid chained into a user ('changed', 2)
+    through the carry, in both packages, under the caller's environment:
+    labels, maxima and both calls' per-iteration stats must be equal (the
+    first ``fields`` of each tuple)."""
+    shape = rho.shape
+    w, tg = W, TG
+    if lattice is not None:
+        w = tuple(jgrid.distance_weights(lattice, shape))
+        tg = jgrid.t_grad(lattice, shape)
+    out = []
+    for pipe, arr in ((jpipe, np.asarray), (tpipe, torch.from_numpy)):
+        s1, s2, carry = {}, {}, {}
+        labels, maxima = pipe.partition_neargrid(
+            arr(rho), None if vac is None else arr(vac), w, tg,
+            full_trajectories=False, carry_out=carry, stats=s1)
+        labels, changed = pipe.refine_labels(
+            "neargrid", ("changed", 2), arr(rho), labels, w, tg,
+            verbose=False, carry_in=carry, stats=s2)
+        out.append((np.asarray(labels), np.asarray(maxima), changed,
+                    [it[:fields] for it in s1["iterations"] + s2.get(
+                        "iterations", [])]))
+    (jl, jm, jc, js), (tl, tm, tc, ts) = out
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_array_equal(tm, jm)
+    assert tc == jc and ts == js
+    return ts
+
+
+@pytest.mark.parametrize("qrows,cpu_gate", [
+    ("internal", "1"), ("all", "1"), ("internal", "0"), ("off", "0")])
+def test_hybrid_qrow_modes_match_jax(monkeypatch, qrows, cpu_gate):
+    """Unscreened q-rows for the internal iterations (internal) or for
+    both calls (all); without PYBADER_TPU_QROWS_CPU=1 both packages walk
+    exact rows on the CPU instead."""
+    monkeypatch.setenv("PYBADER_TPU_QROWS", qrows)
+    monkeypatch.setenv("PYBADER_TPU_QROWS_CPU", cpu_gate)
+    rho = make_density(9)
+    vac = rho <= np.quantile(rho, 0.2)
+    ts = both_hybrids(rho, vac=vac)
+    assert ts[0][1] > 0
+
+
+@pytest.mark.parametrize("qrows", ["screened", "internal"])
+def test_internal_cap_matches_jax(monkeypatch, qrows):
+    """PYBADER_TPU_INTERNAL_CAP=2 caps the internal walks only; capped
+    lanes resolve through their ongrid roots in both packages."""
+    monkeypatch.setenv("PYBADER_TPU_INTERNAL_CAP", "2")
+    monkeypatch.setenv("PYBADER_TPU_QROWS", qrows)
+    monkeypatch.setenv("PYBADER_TPU_QROWS_CPU", "1")
+    ts = both_hybrids(make_density(9), fields=4 if qrows == "internal" else 3)
+    assert ts[0][2] > 0
+
+
+def enable_block_walk(monkeypatch, min_lanes):
+    from pybader_tpu.ops import block_walk as jbw
+    from pybader_tpu_torch.ops import block_walk as tbw
+
+    monkeypatch.setattr(jbw, "_ENABLED", True)
+    monkeypatch.setattr(jbw, "_MIN_LANES", min_lanes)
+    monkeypatch.setenv("PYBADER_TPU_BLOCK_WALK", "1")
+    monkeypatch.setattr(tbw, "_MIN_LANES", min_lanes)
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"PYBADER_TPU_INTERNAL_CAP": "3"},
+    {"PYBADER_TPU_INTERNAL_CAP": "3", "PYBADER_TPU_QROWS": "all",
+     "PYBADER_TPU_QROWS_CPU": "1"},
+    {"PYBADER_TPU_HYBRID_INIT": "nginit", "PYBADER_TPU_QROWS": "internal",
+     "PYBADER_TPU_QROWS_CPU": "1"}])
+def test_hybrid_with_block_walk_matches_jax(monkeypatch, env):
+    """PYBADER_TPU_BLOCK_WALK=1 on a grid of whole 16x16x128 blocks: every
+    walk runs the block phase (the lane minimum lowered to 1024), screened
+    walks included, so the risky counts are compared too.  With a cap that
+    fires, labels follow the block rounds exactly."""
+    from tests import test_block_walk as big
+
+    enable_block_walk(monkeypatch, 1024)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ts = both_hybrids(big.make_density(0), big.LATTICE)
+    if "PYBADER_TPU_INTERNAL_CAP" in env:
+        assert ts[0][2] > 0
+
+
+@pytest.mark.parametrize("cap,vacuum", [(0, False), (2, False), (2, True)])
+def test_full_trajectories_with_block_walk_match_jax(monkeypatch, cap,
+                                                     vacuum):
+    """The full-trajectory partition's screened q walk with the block
+    phase, in one 2^17-lane batch (the non-vacuum starts, padded); with a
+    cap of 2 most lanes are capped after their block rounds."""
+    from pybader_tpu.ops import neargrid as jng
+    from tests import test_block_walk as big
+
+    enable_block_walk(monkeypatch, 1 << 17)
+    if cap:
+        monkeypatch.setattr(tng, "initial_cap", lambda shape: cap)
+        real = jng.walk_drain_screened
+
+        def capped(*args, **kwargs):
+            kwargs["max_steps"] = cap
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(jng, "walk_drain_screened", capped)
+    rho = big.make_density(0)
+    shape = rho.shape
+    w = tuple(jgrid.distance_weights(big.LATTICE, shape))
+    tg = jgrid.t_grad(big.LATTICE, shape)
+    vac = rho <= np.quantile(rho, 0.05) if vacuum else None
+    jl, jm = jpipe.partition_neargrid(rho, vac, w, tg,
+                                      full_trajectories=True)
+    stats = {}
+    tl, tm = tpipe.partition_neargrid(
+        torch.from_numpy(rho), None if vac is None else torch.from_numpy(vac),
+        w, tg, full_trajectories=True, stats=stats)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(tm, np.asarray(jm))
+    assert (stats["cap_fires"] > 0) == bool(cap)
+    assert stats["block_rounds"]
