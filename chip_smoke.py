@@ -22,30 +22,49 @@ Phases (one line of output each, or a few):
      block_walk round on those lanes (PYBADER_TPU_BLOCK_STEPS steps), then
      the whole block phase and the screened walk it feeds timed against
      the exact walk of the same edges
-  7. noise: a 384^3 white-noise field (about 2 M basins): the five
+  7. chase: the chase kernel (Pallas kernel 9) against its plain version
+     (27-way roll-select passes) on the whole grid's ongrid codes at 384^3,
+     seeded as labels_oneshot seeds it and with the one-step parents;
+     labels_oneshot must equal labels_flood and resolve_roots_chase
+     resolve_roots
+  8. noise: a 384^3 white-noise field (about 2 M basins): the five
      partition and sum kernels against their plain versions at that label
      count, then the main-path partition and sums against the plain chain
-  8. cli: the ``bader`` CLI on tests/fixtures/CHGCAR_fixture, with -m
+  9. cli: the ``bader`` CLI on tests/fixtures/CHGCAR_fixture, with -m
      ongrid (charge conserved) and with the default profile (per-atom
      charges, volumes and maxima against the fixture's golden file)
-  9. e2e: ``Bader(..., method='ongrid')()`` at 384^3 with the launch
+ 10. e2e: ``Bader(..., method='ongrid')()`` at 384^3 with the launch
      counters reset just before; its six kernels must have launched, charge
      must be conserved and the labels must equal the plain pipeline's
- 10. default: ``Bader(...)()`` with the default profile at 384^3 (the
+ 11. default: ``Bader(...)()`` with the default profile at 384^3 (the
      hybrid: ongrid init, ('changed', 9) internal refinement chained into
      ('changed', 2)); all ten kernels must have launched, charge must be
      conserved, and the volume maps must equal the same call with every op
      on its plain version on the card
- 11. variants: ``Bader(...)()`` at 384^3 under PYBADER_TPU_HYBRID_INIT=
+ 12. variants: ``Bader(...)()`` at 384^3 under PYBADER_TPU_HYBRID_INIT=
      nginit, PYBADER_TPU_QROWS=internal and PYBADER_TPU_BLOCK_WALK=1, then
      under PYBADER_TPU_BLOCK_WALK=1 alone (screened walks); each must launch
      its quantised-row kernels, conserve charge and equal the same call with
      every op on its plain version on the card
- 12. full: at 256^3, neargrid_walk against its plain version on 2^20
+ 13. mesh: ``make_mesh(4, device="cuda")``, 2x2 shards of 192x192x384 on the
+     one card: the chase against its plain version on shard 0's padded
+     194x194x384 block of the mesh's first chase round (frozen ring, halo
+     from the neighbours; the flood seed and the one-step parents);
+     neargrid_walk_shard against its plain version on shard 0's lanes of
+     iteration 1's edges and on the lanes handed off after every shard's
+     first round, resumed on their new owners, and the owner-computes walk
+     of all the edges equal to neargrid_walk; ``Bader(method='ongrid')()``, the
+     partition and a ('changed', 2) refinement on the mesh equal to one
+     device's; the default ``Bader()`` on the mesh (its ten kernels
+     launched, charge conserved) equal to the sequence it runs, on one
+     device with the kernels: ongrid, the internal ('changed', 9) without
+     carry, a fresh ('changed', 2)
+ 14. full: at 256^3, neargrid_walk against its plain version on 2^20
      random starts with the initial cap, then the full-trajectory
      ``partition_neargrid`` through the kernels (charge conserved)
 
-Times are CUDA events, median of 5.  Each kernel's bound is the least time
+Times are CUDA events, median of 5 (the chase's plain version: one run,
+after a warm-up).  Each kernel's bound is the least time
 the card could take for its work: the larger of the bytes it must move
 (inputs read once, outputs written once; for the walks, the rows their lanes
 touch) over 3.35 TB/s and its operations over the card's rate for their
@@ -124,10 +143,22 @@ KERNELS = {
                         "pybader_tpu/ops/neargrid.py:238"),
     "block_walk": ("pybader_tpu_torch/csrc/block_walk.cu",
                    "pybader_tpu/ops/block_walk.py:299"),
+    # the chase (Pallas kernel 9) and the mesh's resumable shard walker
+    "chase": ("pybader_tpu_torch/csrc/chase.cu",
+              "pybader_tpu/ops/pallas_chase.py:293"),
+    "neargrid_walk_shard": ("pybader_tpu_torch/csrc/neargrid.cu",
+                            "pybader_tpu/parallel/walk.py:68"),
 }
 ONGRID_KERNELS = tuple(KERNELS)[:6]
 DEFAULT_KERNELS = tuple(KERNELS)[:10]
-Q_KERNELS = tuple(KERNELS)[10:]
+Q_KERNELS = tuple(KERNELS)[10:14]
+# what the default Bader() launches on a mesh: the ongrid path's kernels but
+# the roots (the mesh floods with the chase), the refinement kernels but the
+# single-device walker, and the two mesh kernels
+MESH_KERNELS = ("chase", "neargrid_walk_shard", "neargrid_rows",
+                "ongrid_step_codes", "edge_find", "edge_check", "min_pair",
+                "remap_labels", "charge_volume", "surface_min_d2")
+MESH_SHARDS = 4
 
 
 def say(phase, msg):
@@ -202,13 +233,14 @@ def bound(nbytes, f64_ops=0, f32_ops=0):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def compare(name, results, kernel, plain, check, phase, cost, library=None):
+def compare(name, results, kernel, plain, check, phase, cost, library=None,
+            plain_reps=5):
     """Run kernel and plain version once, check them, time both (and the
     library call, where there is one) and record the row of the table."""
     out_k, out_p = kernel(), plain()
     check(out_k, out_p)
     ms = time_ms(kernel)
-    plain_ms = time_ms(plain)
+    plain_ms = time_ms(plain, plain_reps)
     library_ms = None if library is None else time_ms(library)
     if not isinstance(out_k, tuple):
         out_k, out_p = (out_k,), (out_p,)
@@ -319,7 +351,8 @@ def kernel_phase(rho, atoms_cart, shape):
     atom_idx, _ = atoms_ops.assign_to_atoms(maxima_cart, atoms_t, lat)
     atom_labels = reductions.remap_labels_plain(
         labels, atom_idx.to(torch.int32), n_max)
-    edge_mask = edges.edge_find(rho, atom_labels) == -2
+    edge_mask = edges.edge_find_plain(
+        atom_labels, edges.local_max(rho, atom_labels)) == -2
     n_atoms = atoms_t.shape[0]
     n_edge = int(edge_mask.sum())
     # per edge voxel and image: 3 subtractions, 3 products, 2 sums
@@ -359,7 +392,7 @@ def neargrid_phase(rho, shape, codes, labels, res):
     is_max = codes == 13
     known = compare(
         "edge_find", res, lambda: edges.edge_find_cuda(labels, is_max),
-        lambda: edges.edge_find_plain(rho, labels, is_max), equal,
+        lambda: edges.edge_find_plain(labels, is_max), equal,
         "neargrid", bound(6 * n))
     for strict in (False, True):
         # 6 compares, 3 differences, 3 halvings, 9 products, 9 sums,
@@ -717,8 +750,8 @@ def equal_plain(b, density, atoms_cart, tmp, phase):
 
 def default_phase(rho, atoms_cart, tmp):
     """The default profile at 384^3 through the kernels, then the same call
-    with every op on its plain version on the card.  Returns the launches
-    and the Bader result."""
+    with every op on its plain version on the card.  Returns the launches,
+    the Bader result and the call's seconds."""
     density = rho.cpu().numpy()
     b = blob_bader(density, atoms_cart, tmp)
     assert (b.method, b.refine_method) == ("neargrid", "neargrid")
@@ -737,7 +770,7 @@ def default_phase(rho, atoms_cart, tmp):
         + json.dumps([r["iterations"] for r in record]))
     say("default", "launches " + json.dumps(launches))
     equal_plain(b, density, atoms_cart, tmp, "default")
-    return launches, b
+    return launches, b, seconds
 
 
 def relabelled(b, ref):
@@ -846,6 +879,228 @@ def full_phase():
         f"{json.dumps(launches)}")
 
 
+def chase_same(a, b):
+    """Identical chase outputs and change counts."""
+    equal(a[0], b[0])
+    if a[1] != b[1]:
+        raise AssertionError("kernel and plain change counts differ")
+
+
+def chase_phase(shape, codes):
+    """The chase kernel against its plain version (27-way roll-select
+    passes) on the whole grid's ongrid codes of the blob field, with
+    periodic wrap: the label flood seed (``labels_oneshot``) and the
+    one-step parents (``resolve_roots_chase``), each also equal to
+    ``labels_flood`` and ``resolve_roots``.  The table's row comes from
+    the shapes the mesh gives the kernel (:func:`mesh_chase_check`)."""
+    from pybader_tpu_torch.ops import chase, pointer, stencil
+
+    seed, n_max = chase.flood_seed(chase.maxima_mask(codes))
+    chase_same(chase.chase_cuda(seed, codes), chase.chase_plain(seed, codes))
+    ms = time_ms(lambda: chase.chase_cuda(seed, codes))
+    labels, n_lab = chase.labels_oneshot(codes)
+    flood, n_flood = pointer.labels_flood(codes)
+    if n_lab != n_max or n_flood != n_max or not torch.equal(labels, flood):
+        raise AssertionError("labels_oneshot differs from labels_flood")
+    parent = stencil.parent_from_step_codes(codes)
+    roots = chase.resolve_roots_chase(parent)
+    chase_same(chase.chase_cuda(parent, codes),
+               chase.chase_plain(parent, codes))
+    if not torch.equal(roots, pointer.resolve_roots_cuda(parent)):
+        raise AssertionError("resolve_roots_chase differs from resolve_roots")
+    say("chase", f"labels_oneshot ({n_max} maxima) equals labels_flood and "
+        f"resolve_roots_chase equals resolve_roots at {SIZE}^3; the kernel "
+        f"equals chase_plain on both ({ms:.3f} ms on the whole grid)")
+
+
+def mesh_chase_check(rho, shape, mesh, weights, res):
+    """The chase kernel against its plain version on the inputs of the
+    mesh's first chase round on shard 0: the padded block with its frozen
+    ring of code 13 and the halo from the neighbouring shards, seeded as
+    the mesh partition seeds it (the table's row) and with the one-step
+    parents of the cap-fire roots."""
+    from pybader_tpu_torch.ops import chase
+    from pybader_tpu_torch.parallel import mesh as pmesh
+    from pybader_tpu_torch.parallel import sharded
+    from pybader_tpu_torch.parallel.chase import pin_codes
+
+    lay = pmesh.Layout(mesh, shape)
+    bk = sharded.step_codes(pmesh.shard(lay, rho), weights)
+    seed, _, n_max = sharded._seed_local(bk, None)
+    codes = pin_codes(bk)[0]
+    values = pmesh.halo(seed, 1)[0].contiguous()
+    # read 1 byte of code and 4 of value, write 4: the jump passes' pointer
+    # scratch is the kernel's own traffic, not the function's
+    compare("chase", res, lambda: chase.chase_cuda(values, codes),
+            lambda: chase.chase_plain(values, codes), chase_same, "mesh",
+            bound(9 * values.numel()), plain_reps=1)
+    parent = pmesh.Sharded(lay, [lay.parent(b, s)
+                                 for s, b in enumerate(bk.blocks)])
+    values = pmesh.halo(parent, 1)[0].contiguous()
+    chase_same(chase.chase_cuda(values, codes),
+               chase.chase_plain(values, codes))
+    say("mesh", f"chase equals chase_plain on shard 0's padded "
+        f"{tuple(codes.shape)} block of the first round ({n_max} maxima "
+        f"seeded, and the one-step parents)")
+
+
+def shard_walk_check(rho, shape, codes, labels, mesh, res):
+    """neargrid_walk_shard against its plain version on the lanes of
+    iteration 1's edges that shard 0 owns (the table's row) and on the
+    lanes every shard hands off after its first round, resumed on their
+    new owners; then the whole owner-computes walk of all the edges against
+    the single-device walker."""
+    from pybader_tpu_torch import grid
+    from pybader_tpu_torch.ops import edges, neargrid
+    from pybader_tpu_torch.parallel import mesh as pmesh
+    from pybader_tpu_torch.parallel.walk import gather, hand_off, shard_rows, \
+        walk_sharded
+
+    tg = torch.as_tensor(grid.t_grad(LATTICE, shape), device=rho.device)
+    known = edges.edge_find_cuda(labels, codes == 13)
+    starts = torch.nonzero(known.reshape(-1) == -2).reshape(-1).to(
+        torch.int32)
+    cap = neargrid.refine_cap(shape)
+    lay = pmesh.Layout(mesh, shape)
+    rows = shard_rows(pmesh.shard(lay, rho), pmesh.shard(lay, codes), tg,
+                      True)
+    stop = pmesh.shard(lay, known == 2)
+    state = neargrid.shard_state(starts[lay.owner(starts) == 0])
+    args = (rows[0], stop.blocks[0], state, lay.origin(0)[:2],
+            lay.local_shape, shape, cap)
+    st = {}
+    neargrid.neargrid_walk_shard_plain(*args, stats=st)
+    k = state[0].numel()
+    # the rows and stop bytes the lanes touch, each lane's 48-byte state
+    # read and written and its status written, 15 f64 operations a step
+    cost = bound(st["rows_touched"] * 33 + 97 * k, 15 * st["lane_steps"])
+    def flat(out):
+        return (*out[0], out[1])
+
+    out = compare(
+        "neargrid_walk_shard", res,
+        lambda: flat(neargrid.neargrid_walk_shard_cuda(*args)),
+        lambda: flat(neargrid.neargrid_walk_shard_plain(*args)),
+        state_equal, "mesh", cost)
+    status = out[-1]
+    say("mesh", f"shard 0 of {lay.local_shape}: {k} of {starts.numel()} "
+        f"edges, {st['lane_steps']} lane-steps, ended done/cap/off-shard "
+        f"{[int((status == c).sum()) for c in (1, 2, 0)]}")
+    # round 1 on every shard, then the lanes that left their shard resumed
+    # on their new owner (steps, dr and history carried over)
+    moving = [[] for _ in lay.ids]
+    for s in range(len(lay.ids)):
+        new, status = neargrid.neargrid_walk_shard_cuda(
+            rows[s], stop.blocks[s],
+            neargrid.shard_state(starts[lay.owner(starts) == s]),
+            lay.origin(s)[:2], lay.local_shape, shape, cap)
+        go = status == 0
+        hand_off(lay, torch.nonzero(go).reshape(-1),
+                 tuple(a[go] for a in new), moving)
+    resumed = []
+    for t, parts in enumerate(moving):
+        if parts:
+            _, state_t = gather(parts)
+            args_t = (rows[t], stop.blocks[t], state_t, lay.origin(t)[:2],
+                      lay.local_shape, shape, cap)
+            state_equal(flat(neargrid.neargrid_walk_shard_cuda(*args_t)),
+                        flat(neargrid.neargrid_walk_shard_plain(*args_t)))
+            resumed.append(state_t[0].numel())
+    if not resumed:
+        raise AssertionError("no lane left its shard in round 1")
+    say("mesh", f"neargrid_walk_shard equals its plain version on the "
+        f"{sum(resumed)} lanes handed off in round 1, resumed on their new "
+        f"owners ({resumed} a shard)")
+    full = neargrid.neargrid_rows_cuda(rho, codes, tg, True)
+    pos_1, done_1 = neargrid.neargrid_walk_cuda(full, starts, shape, cap,
+                                                known)
+    del full
+    t0 = time.perf_counter()
+    pos, done = walk_sharded(mesh, starts, rho, codes, stop, tg, True, cap,
+                             rows=rows)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not (torch.equal(pos, pos_1) and torch.equal(done, done_1)):
+        raise AssertionError("walk_sharded differs from neargrid_walk")
+    say("mesh", f"walk_sharded of {starts.numel()} edges on "
+        f"{len(lay.ids)} shards equals neargrid_walk ({seconds:.3f} s)")
+
+
+def mesh_phase(rho, atoms_cart, shape, tmp, codes, plain_labels,
+               plain_atom_labels, default_seconds, res):
+    """The multi-device path on MESH_SHARDS shards of one card: the chase
+    and the shard walker on the inputs the mesh gives them, the ongrid
+    Bader(), the partition and a refinement, then the
+    default Bader(), each against the single-device path with the kernels.
+    Returns the default mesh call's launches."""
+    from pybader_tpu_torch import grid, pipeline
+    from pybader_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(MESH_SHARDS, device=DEVICE)
+    say("mesh", f"{mesh}")
+    w = tuple(grid.distance_weights(LATTICE, shape))
+    mesh_chase_check(rho, shape, mesh, w, res)
+    shard_walk_check(rho, shape, codes, plain_labels, mesh, res)
+    density = rho.cpu().numpy()
+    b = blob_bader(density, atoms_cart, tmp, method="ongrid",
+                   refine_method="ongrid")
+    b.mesh = mesh
+    seconds, launches, _ = run_bader(b, [])
+    check_charge(b, density)
+    if not (np.array_equal(b.bader_volumes, plain_labels.cpu().numpy())
+            and np.array_equal(b.atoms_volumes,
+                               plain_atom_labels.cpu().numpy())):
+        raise AssertionError("mesh ongrid Bader differs from one device")
+    say("mesh", f"Bader(method='ongrid')() on the mesh: {seconds:.3f} s, "
+        f"volume maps equal one device's; launches {json.dumps(launches)}")
+    tg = torch.as_tensor(grid.t_grad(LATTICE, shape), device=rho.device)
+    labels_1, maxima_1 = pipeline.partition_ongrid(rho, None, w)
+    labels_n, maxima_n = pipeline.partition_ongrid(rho, None, w, mesh=mesh)
+    if not (torch.equal(labels_n.join(DEVICE), labels_1)
+            and np.array_equal(maxima_n, maxima_1)):
+        raise AssertionError("mesh partition differs from one device")
+    ref_1, ch_1 = pipeline.refine_labels("neargrid", ("changed", 2), rho,
+                                         labels_1, w, tg, verbose=False)
+    ref_n, ch_n = pipeline.refine_labels("neargrid", ("changed", 2), rho,
+                                         labels_n, w, tg, verbose=False,
+                                         mesh=mesh)
+    if ch_n != ch_1 or not torch.equal(ref_n.join(DEVICE), ref_1):
+        raise AssertionError("mesh refinement differs from one device")
+    say("mesh", f"partition_ongrid + ('changed', 2) on the mesh equal one "
+        f"device's: {len(maxima_1)} maxima, {ch_1} changed")
+    # the single-device sequence the mesh's default runs: the ongrid
+    # partition, the internal refinement and a fresh ('changed', 2)
+    internal = pipeline.hybrid_internal_budget(shape)
+    seq, _ = pipeline.refine_labels("neargrid", internal, rho, labels_1, w,
+                                    tg, verbose=False)
+    seq, _ = pipeline.refine_labels("neargrid", ("changed", 2), rho, seq, w,
+                                    tg, verbose=False)
+    b = blob_bader(density, atoms_cart, tmp)
+    b.mesh = mesh
+    record = []
+    seconds, launches, peak = run_bader(b, record)
+    missing = [k for k in MESH_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"default path on the mesh launched no "
+                             f"{missing}")
+    check_charge(b, density)
+    vox = np.rint(b.bader_maxima_fractional * np.asarray(shape)).astype(int)
+    if not (np.array_equal(b.bader_volumes, seq.cpu().numpy())
+            and np.array_equal(vox, maxima_1)):
+        raise AssertionError("mesh default Bader differs from the "
+                             "single-device sequence")
+    say("mesh", f"{SIZE}^3 Bader()() default profile on {MESH_SHARDS} "
+        f"shards: {seconds:.3f} s (one device: {default_seconds:.3f} s), "
+        f"{len(b.bader_charge)} basins, peak device memory {peak} bytes; "
+        f"equals ongrid + {internal} + ('changed', 2) on one device")
+    say("mesh", "refine (edges, changed, cap fires, risky) per iteration, "
+        "internal then user: " + json.dumps([r["iterations"]
+                                             for r in record]))
+    say("mesh", "stage seconds " + json.dumps(b.stage_seconds))
+    say("mesh", "launches " + json.dumps(launches))
+    return launches
+
+
 def main():
     card()
     from pybader_tpu_torch.ops import _cuda
@@ -865,16 +1120,19 @@ def main():
         rho, atoms_cart, shape)
     neargrid_phase(rho, shape, codes, plain_labels, results)
     qrows_phase(rho, shape, codes, plain_labels, results)
-    del codes
+    chase_phase(shape, codes)
     noise_phase(shape, DEVICE)
     with tempfile.TemporaryDirectory() as tmp:
         cli_phase(tmp)
         e2e_phase(rho, atoms_cart, shape, tmp, plain_labels,
                   plain_atom_labels)
-        del plain_labels, plain_atom_labels
-        launches, default = default_phase(rho, atoms_cart, tmp)
+        launches, default, seconds = default_phase(rho, atoms_cart, tmp)
         launches.update(variants_phase(rho, atoms_cart, tmp, default))
-    del rho
+        mesh = mesh_phase(rho, atoms_cart, shape, tmp, codes, plain_labels,
+                          plain_atom_labels, seconds, results)
+        launches.update({k: mesh.get(k, 0)
+                         for k in ("chase", "neargrid_walk_shard")})
+    del rho, codes, plain_labels, plain_atom_labels
     full_phase()
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
               "launches": launches[k], **results[k]}

@@ -7,7 +7,8 @@
 // driven by walk (:907), and the quantised-row walks _walk_segment_q (:238)
 // and _walk_segment_qs (:337).  The JAX drain loop's segments and compaction
 // schedule the walks for the TPU without changing their results; here one
-// thread walks a lane to its end in one launch.
+// thread walks a lane to its end in one launch.  The shard walker replaces
+// the mesh walker of pybader_tpu/parallel/walk.py:68 (walk_sharded).
 //
 // Exact row layout, 32 bytes, one per voxel, so a walker step reads one
 // sector:
@@ -28,12 +29,12 @@
 #include "common.cuh"
 #include "grad.cuh"
 #include "qwalk.cuh"
+#include "walk.cuh"
 
 namespace {
 
-constexpr int kOngrid = 1;
-constexpr int kMax = 2;
-
+using pb::kMax;
+using pb::kOngrid;
 using pb::wrap;
 
 // ----------------------------------------------------------------- rows
@@ -115,17 +116,11 @@ __global__ void qrows_kernel(const double* __restrict__ rho,
 }
 
 // ----------------------------------------------------------------- walk
-__device__ __forceinline__ int round_away(double v) {
-    return static_cast<int>(trunc(__dadd_rn(v, v > 0.0 ? 0.5 : -0.5)));
-}
-
 // One thread per lane walks its trajectory to termination or the cap, with
 // pos, prev, the 3-entry history and dr in registers; no host round trip
 // per step.  Per step: fetch the row at pos (stop there if it is a maximum
-// or, when known is given, a known == 2 voxel); step by round_away(g) plus
-// the rounded sub-voxel remainder dr; an ongrid flag, or a revisit of pos,
-// prev or the history, steps to the ongrid parent and resets dr.  After
-// max_steps steps one more fetch decides done.
+// or, when known is given, a known == 2 voxel), then walk.cuh's step.
+// After max_steps steps one more fetch decides done.
 //
 // Bound: the latency of the dependent row gathers.  Each step's address
 // comes from the previous step's row, so a lane reads one 32-byte sector
@@ -144,59 +139,94 @@ __global__ void walk_kernel(const double2* __restrict__ rows,
         static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (lane >= k) return;
     const int nyz = ny * nz;
-    int pos = starts[lane];
-    if (pos < 0) {  // a padding lane, born done at voxel 0
+    pb::Lane s{starts[lane], -1, -1, -1, -1, 0.0, 0.0, 0.0};
+    if (s.pos < 0) {  // a padding lane, born done at voxel 0
         pos_out[lane] = 0;
         done_out[lane] = 1;
         return;
     }
-    int prev = -1, h0 = -1, h1 = -1, h2 = -1;
-    double d0 = 0.0, d1 = 0.0, d2 = 0.0;
     bool done = false;
     for (int step = 0;; ++step) {
-        const double2 a = __ldg(&rows[2 * static_cast<long long>(pos)]);
-        const double2 b = __ldg(&rows[2 * static_cast<long long>(pos) + 1]);
-        const long long word = __double_as_longlong(b.y);
-        const int parent = static_cast<int>(word & 0xffffffffLL);
-        const int flags = static_cast<int>((word >> 32) & 0xff);
-        if ((flags & kMax) || (known != nullptr && known[pos] == 2)) {
+        const pb::Row r = pb::load_row(rows, s.pos);
+        if ((r.flags & kMax) || (known != nullptr && known[s.pos] == 2)) {
             done = true;
             break;
         }
         if (step == max_steps) break;
-        const int x = pos / nyz;
-        const int rem = pos - x * nyz;
+        const int x = s.pos / nyz;
+        const int rem = s.pos - x * nyz;
+        const int y = rem / nz;
+        pb::advance(r, x, y, rem - y * nz, s, nx, ny, nz);
+    }
+    pos_out[lane] = s.pos;
+    done_out[lane] = done ? 1 : 0;
+}
+
+// The walk of one shard of a mesh, resumable: the owner-computes hand-off
+// of parallel/walk.py.  The shard is the box [ox, ox + lx) x [oy, oy + ly)
+// x [0, nz) of the (nx, ny, nz) grid; its rows (lx * ly * nz of them, in
+// the shard's C order) carry global parents.  Positions are global flat
+// indices, and each step wraps on the global grid.  A lane resumes from its
+// state (pos, prev, hist, dr, steps taken) and walks while it stays in the
+// shard; it ends with status 1 on a maximum or a stop voxel, 2 at the cap
+// (steps == max_steps, not done), or 0 when its position has left the
+// shard, for the owner of that position to resume.  The steps and fetches
+// are walk_kernel's, so a lane handed from shard to shard ends where the
+// single-device walk ends it.
+//
+// Bound: the latency of the dependent row gathers, as walk_kernel; the
+// state (48 bytes) is read and written once a launch.
+__global__ void walk_shard_kernel(const double2* __restrict__ rows,
+                                  const unsigned char* __restrict__ stop,
+                                  int* __restrict__ pos, int* __restrict__ prev,
+                                  int* __restrict__ hist,
+                                  double* __restrict__ dr,
+                                  int* __restrict__ steps,
+                                  unsigned char* __restrict__ status,
+                                  long long k, int lx, int ly, int ox, int oy,
+                                  int nx, int ny, int nz, int max_steps) {
+    const long long lane =
+        static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (lane >= k) return;
+    const int nyz = ny * nz;
+    pb::Lane s{pos[lane],        prev[lane],       hist[3 * lane],
+               hist[3 * lane + 1], hist[3 * lane + 2], dr[3 * lane],
+               dr[3 * lane + 1], dr[3 * lane + 2]};
+    int taken = steps[lane];
+    unsigned char end;
+    for (;;) {
+        const int x = s.pos / nyz;
+        const int rem = s.pos - x * nyz;
         const int y = rem / nz;
         const int z = rem - y * nz;
-        const int i0 = round_away(a.x), i1 = round_away(a.y),
-                  i2 = round_away(b.x);
-        const double e0 = __dsub_rn(__dadd_rn(d0, a.x), i0);
-        const double e1 = __dsub_rn(__dadd_rn(d1, a.y), i1);
-        const double e2 = __dsub_rn(__dadd_rn(d2, b.x), i2);
-        const int c0 = round_away(e0), c1 = round_away(e1),
-                  c2 = round_away(e2);
-        int nxt = (wrap(x + i0 + c0, nx) * ny + wrap(y + i1 + c1, ny)) * nz +
-                  wrap(z + i2 + c2, nz);
-        const bool ongrid = (flags & kOngrid) != 0;
-        if (ongrid) nxt = parent;
-        const bool revisit = nxt == pos || nxt == prev || nxt == h0 ||
-                             nxt == h1 || nxt == h2;
-        if (revisit) nxt = parent;
-        if (ongrid || revisit) {
-            d0 = d1 = d2 = 0.0;
-        } else {
-            d0 = __dsub_rn(e0, c0);
-            d1 = __dsub_rn(e1, c1);
-            d2 = __dsub_rn(e2, c2);
+        if (x < ox || x >= ox + lx || y < oy || y >= oy + ly) {
+            end = 0;
+            break;
         }
-        h2 = h1;
-        h1 = h0;
-        h0 = prev;
-        prev = pos;
-        pos = nxt;
+        const long long li =
+            (static_cast<long long>(x - ox) * ly + (y - oy)) * nz + z;
+        const pb::Row r = pb::load_row(rows, li);
+        if ((r.flags & kMax) || (stop != nullptr && stop[li])) {
+            end = 1;
+            break;
+        }
+        if (taken == max_steps) {
+            end = 2;
+            break;
+        }
+        pb::advance(r, x, y, z, s, nx, ny, nz);
+        ++taken;
     }
-    pos_out[lane] = pos;
-    done_out[lane] = done ? 1 : 0;
+    pos[lane] = s.pos;
+    prev[lane] = s.prev;
+    hist[3 * lane] = s.h0;
+    hist[3 * lane + 1] = s.h1;
+    hist[3 * lane + 2] = s.h2;
+    dr[3 * lane] = s.d0;
+    dr[3 * lane + 1] = s.d1;
+    dr[3 * lane + 2] = s.d2;
+    steps[lane] = taken;
+    status[lane] = end;
 }
 
 // Resume quantised-row walks (state in place) for up to max_steps steps:
@@ -305,5 +335,27 @@ PB_EXPORT int pb_neargrid_walk_q(void* qrows, void* known, void* pos,
     else
         launch_walk_q<false>(blocks, stream, qrows, known, pos, prev, hist,
                              dr, done, err, risky, k, nx, ny, nz, max_steps);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The state arrays (pos, prev, hist (k, 3), dr (k, 3), steps) are updated
+// in place; status is written.  stop may be null.
+PB_EXPORT int pb_neargrid_walk_shard(void* rows, void* stop, void* pos,
+                                     void* prev, void* hist, void* dr,
+                                     void* steps, void* status, long long k,
+                                     int lx, int ly, int ox, int oy, int nx,
+                                     int ny, int nz, int max_steps,
+                                     int device, void* stream) {
+    cudaSetDevice(device);
+    if (k <= 0) return static_cast<int>(cudaGetLastError());
+    const long long blocks = (k + pb::kThreads - 1) / pb::kThreads;
+    walk_shard_kernel<<<static_cast<unsigned int>(blocks), pb::kThreads, 0,
+                        pb::as_stream(stream)>>>(
+        static_cast<const double2*>(rows),
+        static_cast<const unsigned char*>(stop), static_cast<int*>(pos),
+        static_cast<int*>(prev), static_cast<int*>(hist),
+        static_cast<double*>(dr), static_cast<int*>(steps),
+        static_cast<unsigned char*>(status), k, lx, ly, ox, oy, nx, ny, nz,
+        max_steps);
     return static_cast<int>(cudaGetLastError());
 }

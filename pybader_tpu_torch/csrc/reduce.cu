@@ -164,18 +164,23 @@ __global__ void zero_sums_kernel(double* __restrict__ charge,
 // of voxels).  The minimum is an atomicMin on the bits of a non-negative
 // double (their integer order is their numeric order), skipped when the
 // slot already holds a smaller value.
+//
+// The grid may be one shard of a mesh: (lx, ly, lz) voxels at (ox, oy, oz) of
+// the (nx, ny, nz) grid, whose global position x / nx the kernel uses.
 __global__ void surface_min_d2_kernel(const int* __restrict__ labels,
                                       const unsigned char* __restrict__ mask,
                                       const double* __restrict__ geo,
                                       const double* __restrict__ atoms,
                                       unsigned long long* __restrict__ d2,
-                                      int nx, int ny, int nz, int num_atoms) {
+                                      int lx, int ly, int lz, int ox, int oy,
+                                      int oz, int nx, int ny, int nz,
+                                      int num_atoms) {
     // geo: 27 image shifts (x, y, z each) then the 3x3 lattice, row-major
     __shared__ double g[90];
     if (threadIdx.x < 90) g[threadIdx.x] = geo[threadIdx.x];
     __syncthreads();
     const double* lat = g + 81;
-    const long long n = static_cast<long long>(nx) * ny * nz;
+    const long long n = static_cast<long long>(lx) * ly * lz;
     const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
     for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                        threadIdx.x;
@@ -184,7 +189,10 @@ __global__ void surface_min_d2_kernel(const int* __restrict__ labels,
         const int l = labels[i];
         if (l < 0 || l >= num_atoms) continue;
         int x, y, z;
-        pb::unflatten(i, ny, nz, x, y, z);
+        pb::unflatten(i, ly, lz, x, y, z);
+        x += ox;
+        y += oy;
+        z += oz;
         // JAX promotes its int32 / int division to float32 and XLA
         // evaluates it as a multiply by the float32 reciprocal; then the
         // quotient widens to f64.  Match that value exactly.
@@ -280,18 +288,19 @@ PB_EXPORT int pb_charge_volume(void* rho, void* labels, void* charge,
 }
 
 PB_EXPORT int pb_surface_min_d2(void* labels, void* mask, void* geo,
-                                void* atoms, void* d2, int nx, int ny, int nz,
+                                void* atoms, void* d2, int lx, int ly, int lz,
+                                int ox, int oy, int oz, int nx, int ny, int nz,
                                 int num_atoms, int device, void* stream) {
     cudaSetDevice(device);
     cudaStream_t s = pb::as_stream(stream);
     unsigned long long* out = static_cast<unsigned long long*>(d2);
     fill_u64_kernel<<<small_blocks(num_atoms), pb::kThreads, 0, s>>>(
         out, num_atoms, 0x7ff0000000000000ull);
-    const long long n = static_cast<long long>(nx) * ny * nz;
+    const long long n = static_cast<long long>(lx) * ly * lz;
     surface_min_d2_kernel<<<pb::blocks_for(n, device), pb::kThreads, 0, s>>>(
         static_cast<const int*>(labels),
         static_cast<const unsigned char*>(mask),
         static_cast<const double*>(geo), static_cast<const double*>(atoms),
-        out, nx, ny, nz, num_atoms);
+        out, lx, ly, lz, ox, oy, oz, nx, ny, nz, num_atoms);
     return static_cast<int>(cudaGetLastError());
 }

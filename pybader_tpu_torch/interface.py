@@ -6,8 +6,12 @@ text results and pickle persistence.  Results are numpy arrays, as in the
 JAX package; each stage moves its inputs to ``device`` ("cuda" by default,
 "cpu" for the plain PyTorch versions) and brings its outputs back.
 
-Not ported yet (ROADMAP Queue 1): the multi-device mesh and file types
-other than VASP.
+With ``Bader.mesh`` set to a mesh of more than one shard
+(:func:`pybader_tpu_torch.parallel.make_mesh`), the partition, refinement,
+relabel, sums and surface distance run sharded over it, and the mesh's
+devices decide where.
+
+Not ported yet (ROADMAP Queue 1): file types other than VASP.
 """
 from __future__ import annotations
 
@@ -29,11 +33,23 @@ from pybader_tpu_torch.dunders import __config__
 from pybader_tpu_torch.ops import atoms as atoms_ops
 from pybader_tpu_torch.ops import edges as edges_ops
 from pybader_tpu_torch.ops import reductions
+from pybader_tpu_torch.parallel.analysis import (
+    sharded_charge_volume_sum, sharded_min_surface_distance, sharded_relabel,
+)
+from pybader_tpu_torch.parallel.mesh import Sharded, is_multi
 from pybader_tpu_torch.utils import dtype_calc
 
 # This package's writer for each file type a reader records, swapped into
 # file_info by Bader.from_dict (a JAX-package dict carries the JAX writer).
 _WRITERS = {"VASP": io.vasp.write}
+
+
+def _host(grid) -> np.ndarray:
+    """A label grid, whole or sharded, as host numpy (the result attributes
+    that ``results()``, the pickle and the writers read)."""
+    if isinstance(grid, Sharded):
+        return grid.join().numpy()
+    return grid.cpu().numpy()
 
 
 @contextmanager
@@ -158,10 +174,15 @@ class Bader:
                   ``device`` -- where the stages run: "cuda" (the default;
                   hand-written kernels, a failed build or launch raises)
                   or "cpu" (the plain PyTorch versions).  Not a config.ini
-                  key.
+                  key.  And ``mesh``: an optional
+                  :class:`~pybader_tpu_torch.parallel.mesh.Mesh`; with more
+                  than one shard the grid stages run sharded over it (the
+                  multi-device path, ``parallel/``).  Not a config.ini key
+                  and not pickled.
     """
 
     device = "cuda"
+    mesh = None  # class default; set per instance for multi-device runs
 
     def __init__(self, density_dict, lattice, atoms, file_info, **kwargs):
         self._density = density_dict
@@ -482,28 +503,33 @@ class Bader:
         weights = tuple(self.distance_weights)
         vacuum = None
         vols = np.asarray(self.bader_volumes)
+        multi = self._multi_mesh()
         if (vols == -1).any():
-            vacuum = self._dev(vols == -1, torch.bool)
+            vacuum = vols == -1 if multi else self._dev(vols == -1,
+                                                       torch.bool)
+        # on a mesh the grids go to the shards' devices, whole from the host
+        reference = self.reference if multi else self._dev(self.reference,
+                                                           torch.float64)
         with _stage("Calculating Bader volumes",
                     record=self.stage_seconds) as tick:
             if self.method == 'ongrid':
                 labels, maxima = pipeline.partition_ongrid(
-                    self._dev(self.reference, torch.float64), vacuum,
-                    weights, progress=tick)
+                    reference, vacuum, weights, progress=tick,
+                    mesh=self.mesh)
             elif self.method == 'neargrid':
                 # the hybrid's internal refinement hands its continuation
                 # state to refine_volumes, so a following 'changed' refine
                 # chains on instead of re-walking the full edge set
                 carry = {}
                 labels, maxima = pipeline.partition_neargrid(
-                    self._dev(self.reference, torch.float64), vacuum,
-                    weights, self._dev(self.T_grad, torch.float64),
-                    progress=tick, carry_out=carry)
+                    reference, vacuum, weights,
+                    self._dev(self.T_grad, torch.float64),
+                    progress=tick, carry_out=carry, mesh=self.mesh)
                 self._refine_carry = carry if carry else None
             else:
                 raise ValueError(f"Unknown method: {self.method}")
             dtype = dtype_calc(-max(int(maxima.shape[0]), 1))
-            self.bader_volumes = labels.cpu().numpy().astype(dtype)
+            self.bader_volumes = _host(labels).astype(dtype)
         self.bader_maxima = maxima
 
     def bader_to_atom_distance(self):
@@ -517,10 +543,14 @@ class Bader:
             )
             self.bader_atoms = atom_idx.cpu().numpy()
             self.bader_distance = dist.cpu().numpy()
-            atoms_vols = reductions.relabel(
-                self._dev(self.bader_volumes, torch.int32), atom_idx)
+            if self._multi_mesh():
+                atoms_vols = sharded_relabel(self.mesh, self.bader_volumes,
+                                             self.bader_atoms)
+            else:
+                atoms_vols = reductions.relabel(
+                    self._dev(self.bader_volumes, torch.int32), atom_idx)
             dtype = dtype_calc(-max(int(self.atoms.shape[0]), 1))
-            self.atoms_volumes = atoms_vols.cpu().numpy().astype(dtype)
+            self.atoms_volumes = _host(atoms_vols).astype(dtype)
 
     def refine_volumes(self, volumes):
         """Refine edges of the given label map in place."""
@@ -537,15 +567,18 @@ class Bader:
             if not pipeline.refinement_runs(self.refine_method,
                                             self.refine_mode):
                 return  # nothing to upload for a no-op
+            if self._multi_mesh():
+                reference, labels = self.reference, np.asarray(volumes)
+            else:
+                reference = self._dev(self.reference, torch.float64)
+                labels = self._dev(volumes, torch.int32)
             refined, _ = pipeline.refine_labels(
-                self.refine_method, self.refine_mode,
-                self._dev(self.reference, torch.float64),
-                self._dev(volumes, torch.int32),
+                self.refine_method, self.refine_mode, reference, labels,
                 tuple(self.distance_weights),
                 self._dev(self.T_grad, torch.float64),
-                progress=tick, carry_in=carry,
+                progress=tick, carry_in=carry, mesh=self.mesh,
             )
-            np.copyto(volumes, refined.cpu().numpy().astype(volumes.dtype))
+            np.copyto(volumes, _host(refined).astype(volumes.dtype))
 
     def sum_volumes(self, bader=False):
         """Integrate charge/spin/volume per Bader volume or per atom."""
@@ -559,13 +592,19 @@ class Bader:
             prefix = 'atoms'
         with _stage(f"Integrating {prefix} charges",
                     record=self.stage_seconds):
-            labels_dev = self._dev(labels, torch.int32)
+            if self._multi_mesh():
+                def sums(density):
+                    charge, volume = sharded_charge_volume_sum(
+                        self.mesh, density, labels, self.voxel_volume, n)
+                    return charge.numpy(), volume.numpy()
+            else:
+                labels_dev = self._dev(labels, torch.int32)
 
-            def sums(density):
-                charge, volume = reductions.charge_volume_sum(
-                    self._dev(density, torch.float64), labels_dev,
-                    self.voxel_volume, n)
-                return charge.cpu().numpy(), volume.cpu().numpy()
+                def sums(density):
+                    charge, volume = reductions.charge_volume_sum(
+                        self._dev(density, torch.float64), labels_dev,
+                        self.voxel_volume, n)
+                    return charge.cpu().numpy(), volume.cpu().numpy()
 
             charge, volume = sums(self.density)
             setattr(self, f'{prefix}_charge', charge)
@@ -579,6 +618,11 @@ class Bader:
         atoms = self.atoms - self.voxel_offset
         with _stage("Calculating min. surface distance",
                     record=self.stage_seconds):
+            if self._multi_mesh():
+                self.atoms_surface_distance = sharded_min_surface_distance(
+                    self.mesh, self.reference, self.atoms_volumes,
+                    self.lattice, atoms, int(self.atoms.shape[0])).numpy()
+                return
             labels = self._dev(self.atoms_volumes, torch.int32)
             known = edges_ops.edge_find(
                 self._dev(self.reference, torch.float64), labels)
@@ -630,6 +674,17 @@ class Bader:
 
     def load_config(self, key='DEFAULT'):
         self.apply_config(python_config(key=key))
+
+    def _multi_mesh(self):
+        return is_multi(self.mesh)
+
+    def __getstate__(self):
+        # a mesh holds live devices: never pickled; the refine carry is
+        # transient device state (the walk rows)
+        state = dict(self.__dict__)
+        state.pop('mesh', None)
+        state.pop('_refine_carry', None)
+        return state
 
     # --------------------------------------------------------------- output
     def to_file(self):

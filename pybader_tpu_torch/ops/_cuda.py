@@ -31,8 +31,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("stencil.cu", "flood.cu", "reduce.cu", "edges.cu", "neargrid.cu",
-           "block_walk.cu")
-HEADERS = ("common.cuh", "grad.cuh", "qwalk.cuh")
+           "block_walk.cu", "chase.cu")
+HEADERS = ("common.cuh", "grad.cuh", "qwalk.cuh", "jump.cuh", "walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # exact f64: no contraction of a*b+c into one rounding (stencil.cu)
@@ -51,7 +51,7 @@ _ENTRIES = {
     "pb_min_pair": (_P, _P, _P, _P, _L, _I, _I, _P),
     "pb_remap": (_P, _P, _P, _L, _I, _I, _P),
     "pb_charge_volume": (_P, _P, _P, _P, _L, _I, _I, _P),
-    "pb_surface_min_d2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pb_surface_min_d2": (_P, _P, _P, _P, _P, *(_I,) * 9, _I, _I, _P),
     "pb_edge_find": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pb_edge_check": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pb_neargrid_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -62,6 +62,9 @@ _ENTRIES = {
     "pb_block_walk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
                       _I, _I, _I, _P),
     "pb_nginit_codes": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "pb_chase": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pb_neargrid_walk_shard": (_P, _P, _P, _P, _P, _P, _P, _P, _L, *(_I,) * 8,
+                               _I, _P),
 }
 
 _lib = None

@@ -48,23 +48,30 @@ def assign_to_atoms(maxima_cart: torch.Tensor, atoms_cart: torch.Tensor,
 
 def surface_min_d2(labels: torch.Tensor, edge_mask: torch.Tensor,
                    lattice: torch.Tensor, atoms_cart: torch.Tensor,
-                   num_atoms: int) -> torch.Tensor:
+                   num_atoms: int, origin=(0, 0, 0),
+                   shape=None) -> torch.Tensor:
     """(num_atoms,) f64 minimum squared distance from each atom to the edge
     voxels of its own volume over 27 periodic images; +inf where the atom
-    has none.  ``labels``: int32 (nx, ny, nz) voxel -> atom map;
-    ``atoms_cart`` already shifted by -voxel_offset."""
+    has none.  ``labels``: int32 voxel -> atom map; ``atoms_cart`` already
+    shifted by -voxel_offset.  The grid may be one shard of a mesh: its
+    voxels sit at ``origin`` of the grid ``shape`` (default: the grid
+    itself), whose positions x / nx place them."""
+    if shape is None:
+        shape = tuple(labels.shape)
     if _cuda.on_cuda(labels):
         return surface_min_d2_cuda(labels, edge_mask, lattice, atoms_cart,
-                                   num_atoms)
+                                   num_atoms, origin, shape)
     return surface_min_d2_plain(labels, edge_mask, lattice, atoms_cart,
-                                num_atoms)
+                                num_atoms, origin, shape)
 
 
 def surface_min_d2_plain(labels, edge_mask, lattice, atoms_cart,
-                         num_atoms: int):
+                         num_atoms: int, origin=(0, 0, 0), shape=None):
     """Edge compaction, then the f64 op order of the JAX
     ``surface_distance_from_edges``."""
-    nx, ny, nz = labels.shape
+    _, ly, lz = labels.shape
+    nx, ny, nz = labels.shape if shape is None else shape
+    ox, oy, oz = origin
     dev = labels.device
     lab_flat = labels.reshape(-1)
     edge_idx = torch.nonzero(edge_mask.reshape(-1)).reshape(-1)
@@ -74,8 +81,9 @@ def surface_min_d2_plain(labels, edge_mask, lattice, atoms_cart,
     for lo in range(0, edge_idx.shape[0], _EDGE_CHUNK):
         idx = edge_idx[lo:lo + _EDGE_CHUNK]
         frac = torch.stack(
-            [_frac32(idx // (ny * nz), nx), _frac32((idx // nz) % ny, ny),
-             _frac32(idx % nz, nz)], dim=-1).to(lattice.dtype)
+            [_frac32(idx // (ly * lz) + ox, nx),
+             _frac32((idx // lz) % ly + oy, ny),
+             _frac32(idx % lz + oz, nz)], dim=-1).to(lattice.dtype)
         pc = frac @ lattice
         lab = lab_flat[idx].long()
         own = atoms_cart[lab.clamp(0, num_atoms - 1)]
@@ -87,7 +95,7 @@ def surface_min_d2_plain(labels, edge_mask, lattice, atoms_cart,
 
 
 def surface_min_d2_cuda(labels, edge_mask, lattice, atoms_cart,
-                        num_atoms: int):
+                        num_atoms: int, origin=(0, 0, 0), shape=None):
     """Launch ``pb_surface_min_d2`` (csrc/reduce.cu)."""
     _cuda.check(labels, torch.int32, "labels")
     _cuda.check(edge_mask, torch.bool, "edge_mask", labels.shape)
@@ -102,11 +110,16 @@ def surface_min_d2_cuda(labels, edge_mask, lattice, atoms_cart,
     if tuple(atoms.shape) != (num_atoms, 3):
         raise ValueError(f"atoms_cart: expected ({num_atoms}, 3), got "
                          f"{tuple(atoms.shape)}")
+    shape = tuple(labels.shape) if shape is None else tuple(shape)
+    if any(o < 0 or o + n > m
+           for o, n, m in zip(origin, labels.shape, shape)):
+        raise ValueError(f"a {tuple(labels.shape)} shard at {origin} does "
+                         f"not fit the grid {shape}")
     d2 = torch.empty((num_atoms,), dtype=torch.float64, device=labels.device)
-    nx, ny, nz = labels.shape
     _cuda.call("pb_surface_min_d2", labels.data_ptr(), edge_mask.data_ptr(),
-               geo.data_ptr(), atoms.data_ptr(), d2.data_ptr(), nx, ny, nz,
-               num_atoms, labels.device.index or 0, _cuda.stream(labels))
+               geo.data_ptr(), atoms.data_ptr(), d2.data_ptr(),
+               *labels.shape, *(int(o) for o in origin), *shape, num_atoms,
+               labels.device.index or 0, _cuda.stream(labels))
     _cuda.launches["surface_min_d2"] += 1
     return d2
 

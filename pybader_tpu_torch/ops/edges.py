@@ -1,13 +1,12 @@
 """Edge classification (``known`` grid).
 
-Port of :func:`pybader_tpu.ops.edges.edge_find` and ``edge_check``.  With
-``is_max`` (the ascent stencil's self step, which refinement always has) a
+Port of :func:`pybader_tpu.ops.edges.edge_find` and ``edge_check``.  A
 CUDA tensor runs the kernels of ``csrc/edges.cu``, the port of the Pallas
 kernels of ``ops/pallas_edges.py``; a CPU tensor runs the plain versions,
-the separable periodic 3x3x3 box reductions of the JAX XLA path.  Without
-``is_max`` (the surface-distance stage, whose local-maximum mask comes from
-the density with vacuum neighbours ignored) ``edge_find`` is plain torch on
-any device, as it is XLA in the JAX package.
+the separable periodic 3x3x3 box reductions of the JAX XLA path.
+Refinement gives ``edge_find`` its maxima (the ascent stencil's self
+step); the surface-distance stage gives none, and they come from the
+density with vacuum neighbours ignored (:func:`local_max`).
 
 ``known`` encoding: 2 interior or local maximum, -1 near an edge, -2 edge
 voxel, 0 vacuum far from any edge.  Vacuum voxels are never edge
@@ -48,18 +47,24 @@ def edge_find(reference: torch.Tensor, labels: torch.Tensor,
     different label and it is not a local maximum; its other neighbours
     are near-edge.  ``reference`` is read only when ``is_max`` is None.
     """
-    if is_max is not None and _cuda.on_cuda(labels):
-        return edge_find_cuda(labels, is_max)
-    return edge_find_plain(reference, labels, is_max)
-
-
-def edge_find_plain(reference, labels, is_max=None):
-    vac = labels == -1
-    nonvac = ~vac
     if is_max is None:
-        rmax = _box_reduce(torch.where(vac, float("-inf"), reference),
-                           torch.maximum)
-        is_max = rmax == reference
+        is_max = local_max(reference, labels)
+    if _cuda.on_cuda(labels):
+        return edge_find_cuda(labels, is_max)
+    return edge_find_plain(labels, is_max)
+
+
+def local_max(reference: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The local maxima ``edge_find`` takes from the density when it is
+    given no ``is_max``: voxels no non-vacuum neighbour exceeds (the box
+    max, vacuum at -inf, equals the voxel)."""
+    rmax = _box_reduce(torch.where(labels == -1, float("-inf"), reference),
+                       torch.maximum)
+    return rmax == reference
+
+
+def edge_find_plain(labels, is_max):
+    nonvac = labels != -1
     edge = nonvac & _is_edge(labels) & ~is_max
     near = _box_reduce(edge, torch.logical_or) & ~edge
     known = torch.where(nonvac, 2, 0).to(torch.int8)

@@ -214,28 +214,36 @@ def neargrid_walk_plain(rows, starts, shape, max_steps: int, known=None,
         if step == max_steps or lane.numel() == 0:
             break
         lane_steps += lane.numel()
-        g = grad[pos]
-        par = parent[pos]
-        ongrid = (flags[pos] & ONGRID) != 0
         xyz = torch.stack([pos // (ny * nz), (pos // nz) % ny, pos % nz], 1)
-        int_grad = _round_away(g)
-        dr_new = (dr + g) - int_grad
-        int_dr = _round_away(dr_new)
-        dr_after = dr_new - int_dr
-        t = torch.remainder(xyz + int_grad + int_dr, dims)
-        nxt = (t[:, 0] * ny + t[:, 1]) * nz + t[:, 2]
-        nxt = torch.where(ongrid, par, nxt)
-        revisit = (nxt == pos) | (nxt == prev) | (nxt[:, None] == hist).any(1)
-        nxt = torch.where(revisit, par, nxt)
-        dr = torch.where((ongrid | revisit)[:, None], 0.0, dr_after)
-        hist = torch.cat([prev[:, None], hist[:, :2]], 1)
-        prev = pos
-        pos = nxt
+        pos, prev, hist, dr = _exact_step(
+            grad[pos], parent[pos], (flags[pos] & ONGRID) != 0, xyz, pos,
+            prev, hist, dr, dims, shape)
     out_pos[lane] = pos  # lanes still walking at the cap
     if stats is not None:
         stats["lane_steps"] = lane_steps
         stats["rows_touched"] = int(touched.sum())
     return out_pos.to(torch.int32), out_done
+
+
+def _exact_step(g, par, ongrid, xyz, pos, prev, hist, dr, dims, shape):
+    """One exact-row step of lanes that did not stop (walk.cuh's
+    ``advance``): step by round_away(g) plus the rounded remainder dr,
+    wrapping on the grid ``shape`` (``dims`` as a tensor); an ongrid flag
+    or a revisit of pos, prev or the history steps to the ongrid parent and
+    resets dr.  Positions are int64 flat indices; returns (pos, prev, hist,
+    dr) after the step."""
+    _, ny, nz = shape
+    int_grad = _round_away(g)
+    dr_new = (dr + g) - int_grad
+    int_dr = _round_away(dr_new)
+    dr_after = dr_new - int_dr
+    t = torch.remainder(xyz + int_grad + int_dr, dims)
+    nxt = (t[:, 0] * ny + t[:, 1]) * nz + t[:, 2]
+    nxt = torch.where(ongrid, par, nxt)
+    revisit = (nxt == pos) | (nxt == prev) | (nxt[:, None] == hist).any(1)
+    nxt = torch.where(revisit, par, nxt)
+    dr = torch.where((ongrid | revisit)[:, None], 0.0, dr_after)
+    return nxt, pos, torch.cat([prev[:, None], hist[:, :2]], 1), dr
 
 
 def neargrid_walk_cuda(rows, starts, shape, max_steps: int, known=None):
@@ -258,6 +266,133 @@ def neargrid_walk_cuda(rows, starts, shape, max_steps: int, known=None):
                rows.device.index or 0, _cuda.stream(rows))
     _cuda.launches["neargrid_walk"] += 1
     return pos, done
+
+
+# ------------------------------------------------------------ shard walk
+def shard_state(starts: torch.Tensor):
+    """The walk state of lanes starting at the flat voxels ``starts``
+    (none of them -1): (pos, prev, hist (K, 3), dr (K, 3) f64, steps),
+    int32 but for dr."""
+    k, dev = starts.numel(), starts.device
+    return (starts.to(torch.int32).clone(),
+            torch.full((k,), -1, dtype=torch.int32, device=dev),
+            torch.full((k, 3), -1, dtype=torch.int32, device=dev),
+            torch.zeros((k, 3), dtype=torch.float64, device=dev),
+            torch.zeros((k,), dtype=torch.int32, device=dev))
+
+
+def neargrid_walk_shard(rows: torch.Tensor, stop: torch.Tensor | None,
+                        state, origin, local_shape, shape, max_steps: int):
+    """Resume exact-row walks on one shard of a mesh.
+
+    The shard is the box ``origin + [0, local_shape)`` of the grid
+    ``shape`` (z whole); ``rows`` are its (lx * ly * nz, 4) rows in its own
+    C order, with global parents; ``stop`` its bool stop set or None.
+    ``state`` (:func:`shard_state`) holds global flat positions.  A lane
+    walks while it stays in the shard, as :func:`neargrid_walk` walks it
+    on the whole grid, and ends with status 1 (a maximum or stop voxel), 2
+    (``steps == max_steps``) or 0 (its position left the shard: the owner
+    of the new position resumes it).  returns (new state, status uint8).
+    A CUDA tensor runs ``csrc/neargrid.cu``; the input state is kept.
+    """
+    if _cuda.on_cuda(rows):
+        return neargrid_walk_shard_cuda(rows, stop, state, origin,
+                                        local_shape, shape, max_steps)
+    return neargrid_walk_shard_plain(rows, stop, state, origin, local_shape,
+                                     shape, max_steps)
+
+
+def neargrid_walk_shard_plain(rows, stop, state, origin, local_shape, shape,
+                              max_steps: int, stats=None):
+    """Plain PyTorch shard walk: live lanes step in lockstep (the step of
+    :func:`neargrid_walk_plain`) and leave the batch as they end.
+    ``stats``, if a dict, receives ``lane_steps`` and ``rows_touched`` (the
+    shard's distinct rows read)."""
+    nx, ny, nz = shape
+    lx, ly, _ = local_shape
+    ox, oy = origin
+    dev = rows.device
+    dims = torch.tensor([nx, ny, nz], device=dev)
+    words = rows.view(torch.int32)
+    grad, parent, flags = rows[:, :3], words[:, 6].long(), words[:, 7]
+    stop = None if stop is None else stop.reshape(-1)
+    out = [a.clone() for a in state]
+    status = torch.zeros(out[0].shape, dtype=torch.uint8, device=dev)
+    lane = torch.arange(out[0].numel(), device=dev)
+    pos, prev, hist = (out[0].long(), out[1].long(), out[2].long())
+    dr, steps = out[3], out[4]
+    touched = torch.zeros(rows.shape[0], dtype=torch.bool, device=dev)
+    lane_steps = 0
+
+    def retire(mask, code):
+        nonlocal lane, pos, prev, hist, dr, steps
+        idx = lane[mask]
+        for slot, a in enumerate((pos, prev, hist, dr, steps)):
+            out[slot][idx] = a[mask].to(out[slot].dtype)
+        status[idx] = code[mask].to(torch.uint8)
+        keep = ~mask
+        lane, pos, prev, hist = lane[keep], pos[keep], prev[keep], hist[keep]
+        dr, steps = dr[keep], steps[keep]
+
+    while lane.numel():
+        xyz = torch.stack([pos // (ny * nz), (pos // nz) % ny, pos % nz], 1)
+        x, y = xyz[:, 0] - ox, xyz[:, 1] - oy
+        outside = (x < 0) | (x >= lx) | (y < 0) | (y >= ly)
+        li = ((x * ly + y) * nz + xyz[:, 2]).clamp(0, rows.shape[0] - 1)
+        touched[li[~outside]] = True
+        end = (flags[li] & MAX) != 0
+        if stop is not None:
+            end |= stop[li]
+        end &= ~outside
+        capped = ~outside & ~end & (steps == max_steps)
+        fin = outside | end | capped
+        if bool(fin.any()):
+            retire(fin, torch.where(outside, 0, torch.where(end, 1, 2)))
+            xyz, li = xyz[~fin], li[~fin]
+        if lane.numel() == 0:
+            break
+        pos, prev, hist, dr = _exact_step(
+            grad[li], parent[li], (flags[li] & ONGRID) != 0, xyz, pos, prev,
+            hist, dr, dims, shape)
+        steps = steps + 1
+        lane_steps += lane.numel()
+    if stats is not None:
+        stats["lane_steps"] = lane_steps
+        stats["rows_touched"] = int(touched.sum())
+    return tuple(out), status
+
+
+def neargrid_walk_shard_cuda(rows, stop, state, origin, local_shape, shape,
+                             max_steps: int):
+    """Launch ``pb_neargrid_walk_shard`` (csrc/neargrid.cu) on a copy of
+    the state."""
+    nx, ny, nz = shape
+    lx, ly, lz = local_shape
+    if lz != nz:
+        raise ValueError(f"local_shape: z must be whole ({nz}), got {lz}")
+    _cuda.check(rows, torch.float64, "rows", (lx * ly * lz, 4), per_voxel=4)
+    if stop is not None:
+        _cuda.check(stop, torch.bool, "stop", local_shape)
+    k = state[0].numel()
+    kinds = ((torch.int32, (k,)), (torch.int32, (k,)), (torch.int32, (k, 3)),
+             (torch.float64, (k, 3)), (torch.int32, (k,)))
+    for a, (dtype, shp), name in zip(state, kinds,
+                                     ("pos", "prev", "hist", "dr", "steps")):
+        _cuda.check(a, dtype, name, shp)
+    if k:
+        lo, hi = torch.aminmax(state[0])
+        if int(lo) < 0 or int(hi) >= nx * ny * nz:
+            raise ValueError(f"pos: flat indices must lie in "
+                             f"[0, {nx * ny * nz})")
+    out = tuple(a.clone() for a in state)
+    status = torch.empty((k,), dtype=torch.uint8, device=rows.device)
+    _cuda.call("pb_neargrid_walk_shard", rows.data_ptr(),
+               None if stop is None else stop.data_ptr(),
+               *(a.data_ptr() for a in out), status.data_ptr(), k, lx, ly,
+               int(origin[0]), int(origin[1]), nx, ny, nz, int(max_steps),
+               rows.device.index or 0, _cuda.stream(rows))
+    _cuda.launches["neargrid_walk_shard"] += 1
+    return out, status
 
 
 # ------------------------------------------------------------------ q-rows

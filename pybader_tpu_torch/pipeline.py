@@ -19,6 +19,10 @@ their result differs from the exact walk's: the unscreened modes
 ``PYBADER_TPU_QROWS_CPU=1``, as in JAX), and any walk on which the block
 phase runs, since its steps do not count toward the step cap.
 
+With ``mesh=`` (a :class:`~pybader_tpu_torch.parallel.mesh.Mesh` of more
+than one shard) the three entry points run sharded over a device mesh, with
+the JAX package's rules for it (:mod:`pybader_tpu_torch.parallel`).
+
 Not ported (ROADMAP Queue 1): ``PYBADER_TPU_F32_ROWS``, which the JAX
 package ignores on the CPU and so has no reference there, and the drain
 knobs that leave results unchanged (``PYBADER_TPU_SEGMENTS``,
@@ -38,6 +42,12 @@ from pybader_tpu_torch.ops.pointer import labels_flood, resolve_roots
 from pybader_tpu_torch.ops.stencil import (
     neargrid_init_codes, ongrid_step_codes, parent_from_step_codes,
 )
+from pybader_tpu_torch.parallel import sharded
+from pybader_tpu_torch.parallel.chase import sharded_chase
+from pybader_tpu_torch.parallel.mesh import (
+    Sharded, is_multi, layout_of, put, shard, take,
+)
+from pybader_tpu_torch.parallel.walk import shard_rows, walk_sharded
 
 METHODS = ["ongrid", "neargrid"]
 REFINEMENT_METHODS = ["neargrid"]
@@ -96,7 +106,7 @@ def renumber_discovery(labels_mo: torch.Tensor, is_max: torch.Tensor,
 
 
 def partition_ongrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
-                     weights, progress=None):
+                     weights, progress=None, mesh=None):
     """Ongrid partition: step codes, roots, discovery-order labels.
 
     args:
@@ -105,10 +115,17 @@ def partition_ongrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
         vacuum: bool mask on the same device, or None.
         weights: the 27 distance weights (OFFSETS order).
         progress: optional callback(str) for live stage ticks.
+        mesh: optional :class:`~pybader_tpu_torch.parallel.mesh.Mesh` of
+            more than one shard: the partition runs sharded over it
+            (:func:`~pybader_tpu_torch.parallel.sharded_partition`; its
+            devices decide where, and the labels come back sharded).  A
+            one-shard mesh takes the single-device path.
     returns:
         (labels int32 tensor [-1 vacuum, 0..M-1 basins],
          maxima (M, 3) int64 numpy voxel indices in discovery order)
     """
+    if is_multi(mesh):
+        return sharded.sharded_partition(mesh, reference, vacuum, weights)
     return _partition_codes(step_codes(reference, vacuum, weights), vacuum,
                             progress)
 
@@ -179,7 +196,7 @@ def hybrid_internal_budget(shape):
 
 def partition_neargrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
                        weights, t_grad, full_trajectories: bool | None = None,
-                       progress=None, carry_out=None, stats=None):
+                       progress=None, carry_out=None, stats=None, mesh=None):
     """Neargrid partition.
 
     Every non-vacuum voxel walks its full neargrid trajectory to a maximum
@@ -205,11 +222,28 @@ def partition_neargrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
     trajectories) or the internal refinement's ``iterations`` (hybrid),
     and ``block_rounds`` where the block phase ran.
 
+    On a ``mesh`` of more than one shard the hybrid always runs, from the
+    mesh's ongrid partition, whatever ``full_trajectories``,
+    ``PYBADER_TPU_FULL_TRAJECTORIES`` and ``PYBADER_TPU_HYBRID_INIT`` say;
+    its internal refinement walks exact rows on the mesh and hands on no
+    carry (:func:`refine_labels`).  The labels come back sharded.
+
     returns (labels int32 tensor, maxima (M, 3) int64 numpy)
     """
     shape = tuple(reference.shape)
-    n = reference.numel()
     env = os.environ.get
+    if is_multi(mesh):
+        labels, maxima = sharded.sharded_partition(mesh, reference, vacuum,
+                                                   weights)
+        internal = hybrid_internal_budget(shape)
+        if env("PYBADER_TPU_INTERNAL_ITERS") is not None:
+            internal = ("changed", int(env("PYBADER_TPU_INTERNAL_ITERS")))
+        labels, _ = refine_labels(
+            "neargrid", internal, reference, labels, weights, t_grad,
+            verbose=False, progress=progress, stats=stats, mesh=mesh,
+            step_cap=int(env("PYBADER_TPU_INTERNAL_CAP", "0")) or None)
+        return labels, maxima
+    n = reference.numel()
     if full_trajectories is None:
         if env("PYBADER_TPU_FULL_TRAJECTORIES") is not None:
             full_trajectories = env("PYBADER_TPU_FULL_TRAJECTORIES").lower() \
@@ -327,7 +361,7 @@ def refinement_runs(method: str, refine_mode) -> bool:
 def refine_labels(method: str, refine_mode, reference, labels, weights,
                   t_grad, verbose: bool = True, progress=None, stats=None,
                   carry_in=None, carry_out=None, quantized=None,
-                  step_cap: int | None = None):
+                  step_cap: int | None = None, mesh=None):
     """Iterative neargrid edge refinement.
 
     Iteration 1 walks every edge voxel (``edge_find``); later iterations
@@ -362,11 +396,21 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
 
     ``reference``, ``labels`` and ``t_grad`` are tensors on one device
     (``t_grad`` may also be numpy).  returns (labels, total_changed).
+
+    On a ``mesh`` of more than one shard the grids stay sharded
+    (:func:`_refine_mesh`): exact rows only, no carry, no ``quantized``;
+    ``reference`` and ``labels`` may be whole or
+    :class:`~pybader_tpu_torch.parallel.mesh.Sharded`, and the labels come
+    back sharded.
     """
     if not refinement_runs(method, refine_mode):
         return labels, 0
     mode, iters = tuple(refine_mode)
     max_iters = np.inf if iters < 0 else int(iters)
+    if is_multi(mesh):
+        return _refine_mesh(mesh, str(mode).lower(), max_iters, reference,
+                            labels, weights, t_grad, verbose, progress, stats,
+                            step_cap)
     if str(mode).lower() != "changed":
         carry_in = carry_out = None
     if carry_in is not None and carry_in.get("converged"):
@@ -453,6 +497,85 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
         else:
             carry_out.update(known=known, bk=bk, is_max=is_max,
                              rows=exact.value, qrows=quant.value)
+    return labels, total_changed
+
+
+def _refine_mesh(mesh, mode, max_iters, reference, labels, weights, t_grad,
+                 verbose, progress, stats, step_cap):
+    """:func:`refine_labels` with every grid sharded over ``mesh``.
+
+    JAX's rules on a mesh: exact rows (built once, per shard, by
+    :func:`~pybader_tpu_torch.parallel.walk.shard_rows`), no carry and no
+    candidate filter.  ``edge_find`` / ``edge_check`` run per shard on
+    2-haloed grids, the walk is the owner-computes
+    :func:`~pybader_tpu_torch.parallel.walk.walk_sharded`, and capped lanes
+    resolve through roots from the mesh chase.  Each iteration's edge list
+    is the shards' edges in shard order; walks and the label update do not
+    depend on that order.  returns (labels :class:`Sharded`, total
+    changed)."""
+    lay = layout_of(mesh, labels)
+    home = lay.devices[0]
+    rho = shard(lay, reference, torch.float64)
+    labels = shard(lay, labels, torch.int32).map(torch.clone)
+    vac = labels.map(lambda b: b == -1)
+    bk = sharded.step_codes(rho, weights, vac)
+    is_max = Sharded(lay, [(b == 13) & ~v
+                           for b, v in zip(bk.blocks, vac.blocks)])
+    known = sharded.edges_find(labels, is_max)
+    rows = shard_rows(rho, bk, t_grad, True)
+    cap = neargrid.refine_cap(lay.shape) if step_cap is None else step_cap
+    roots = None  # resolved on the first step-cap fire
+    total_changed = 0
+    if stats is not None:
+        stats["iterations"] = []
+    t_iter = time.perf_counter()
+    it = 0
+    while it < max_iters:
+        it += 1
+        starts = torch.cat([
+            lay.to_global(torch.nonzero(k.view(-1) == -2).view(-1), s).to(home)
+            for s, k in enumerate(known.blocks)]).to(torch.int32)
+        n_edges = starts.numel()
+        if n_edges == 0:
+            if verbose and it == 1:
+                print("  No edges found.")
+            break
+        if verbose:
+            print(f"  Iteration {it}: refining {n_edges} edges")
+        if progress is not None:
+            progress(f"iteration {it}: walking {n_edges} edges")
+        pos, done = walk_sharded(mesh, starts, rho, bk,
+                                 known.map(lambda k: k == 2), t_grad, True,
+                                 cap, rows=rows)
+        n_capped = int((~done).sum())
+        if n_capped:
+            if verbose:
+                print(f"  {n_capped} trajectories hit the step cap "
+                      f"(resolved through ongrid roots)")
+            if roots is None:
+                roots = sharded_chase(mesh, Sharded(lay, [
+                    lay.parent(b, s) for s, b in enumerate(bk.blocks)]), bk)
+            pos = torch.where(done, pos, take(roots, pos))
+        # every old and new label is gathered before any is written
+        new, old = take(labels, pos), take(labels, starts)
+        moved = new != old
+        put(labels, starts, new)
+        put(known, starts, torch.where(moved, -2, -1).to(torch.int8))
+        changed = int(moved.sum())
+        total_changed += changed
+        if stats is not None:
+            now = time.perf_counter()
+            stats["iterations"].append(
+                (n_edges, changed, n_capped, 0, round(now - t_iter, 3)))
+            t_iter = now
+        if verbose:
+            print(f"  {changed} points changed.")
+        if changed == 0 or it >= max_iters:
+            break
+        if mode == "all":
+            known = sharded.edges_find(labels, is_max)
+        else:
+            known = sharded.edges_check(known, labels, is_max)
     return labels, total_changed
 
 

@@ -44,3 +44,24 @@ def test_port_sources_have_no_jax_import():
                 offenders.append(os.path.relpath(path, ROOT))
     assert len(files) > 10
     assert not offenders, offenders
+
+
+def test_parallel_package_runs_without_jax():
+    """``pybader_tpu_torch.parallel`` imports and runs a virtual CPU mesh
+    with no jax module loaded."""
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "from pybader_tpu_torch.parallel import make_mesh, sharded_partition\n"
+        "from pybader_tpu_torch.parallel import analysis, chase, walk\n"
+        "rho = np.random.default_rng(0).random((8, 6, 4))\n"
+        "labels, maxima = sharded_partition(make_mesh(4, device='cpu'), rho,"
+        " None, [1.0] * 27)\n"
+        "assert labels.join().shape == (8, 6, 4) and len(maxima)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'pybader_tpu.')) or m == 'pybader_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -3,11 +3,13 @@
 Run from the repository root on a machine with one CUDA GPU:
 
     python3 tools/profile_ongrid.py [--size 384] [--warm 3] [--default]
-                                    [--trace PATH]
+                                    [--mesh N] [--trace PATH]
 
 It builds chip_smoke's blob density at ``--size``^3, runs
 ``Bader(method='ongrid')()`` (with ``--default``: ``Bader()()``, the default
-profile) on the card ``--warm`` times unprofiled, then once under
+profile; with ``--mesh N``: on N shards of the card,
+``make_mesh(N, device="cuda")``) on the card ``--warm`` times unprofiled,
+then once under
 ``torch.profiler``, and prints the wall time of each run and one JSON line
 with the device time of the profiled run by kind: host<->device copies,
 each hand-written kernel of ``pybader_tpu_torch/csrc``, every other kernel,
@@ -29,6 +31,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from pybader_tpu_torch.parallel import make_mesh  # noqa: E402
 
 # __global__ functions of csrc/*.cu, matched in the demangled kernel names
 HAND_WRITTEN = ("ongrid_step_codes_kernel", "jump_kernel", "min_pair_kernel",
@@ -36,12 +39,14 @@ HAND_WRITTEN = ("ongrid_step_codes_kernel", "jump_kernel", "min_pair_kernel",
                 "surface_min_d2_kernel", "fill_int_kernel",
                 "zero_sums_kernel", "fill_u64_kernel", "find_flags_kernel",
                 "find_known_kernel", "check_flags_kernel",
-                "check_near_kernel", "rows_kernel", "walk_kernel")
+                "check_near_kernel", "rows_kernel", "walk_kernel",
+                "pointer_kernel", "gather_kernel", "walk_shard_kernel")
 ONGRID = {"method": "ongrid", "refine_method": "ongrid"}
 
 
-def timed_call(density, atoms, tmp, config):
+def timed_call(density, atoms, tmp, config, mesh=None):
     b = chip_smoke.blob_bader(density, atoms, tmp, **config)
+    b.mesh = mesh
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     b()
@@ -98,6 +103,8 @@ def main(argv=None):
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--default", action="store_true",
                     help="profile the default profile instead of ongrid")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="run on a mesh of this many shards of the card")
     ap.add_argument("--trace", help="write the chrome trace to this path")
     args = ap.parse_args(argv)
     config = {} if args.default else ONGRID
@@ -111,13 +118,14 @@ def main(argv=None):
     density = rho.cpu().numpy()
     del rho
     torch.cuda.empty_cache()
+    mesh = make_mesh(args.mesh, device="cuda") if args.mesh else None
     with tempfile.TemporaryDirectory() as tmp:
         for i in range(args.warm):
-            wall, stages = timed_call(density, atoms, tmp, config)
+            wall, stages = timed_call(density, atoms, tmp, config, mesh)
             print(f"warm {i}: {wall:.3f} s {json.dumps(stages)}", flush=True)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall, stages = timed_call(density, atoms, tmp, config)
+            wall, stages = timed_call(density, atoms, tmp, config, mesh)
     print(f"profiled: {wall:.3f} s {json.dumps(stages)}", flush=True)
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
