@@ -10,11 +10,15 @@ Phases (one line of output each, or a few):
      process per source, all at once)
   3. field: a 384^3 f64 blob density (60 blobs, seed 1) made on the card
   4. kernel: each of the six ongrid-path kernels against its plain PyTorch
-     version on the card, on the inputs the ongrid path gives it at 384^3
+     version on the card, on the inputs the ongrid path gives it at 384^3;
+     remap_labels also at a ragged length and at storage offsets 1 and 3
   5. neargrid: the four refinement kernels at 384^3 on the same field:
      edge_find on the ongrid labels, neargrid_rows for both gradient tests,
      neargrid_walk on iteration 1's full edge set (stop at known == 2, the
-     refinement cap) and edge_check on the known grid after that iteration
+     refinement cap; with the build time of its stop bitmap, the occupancy
+     its launch got and lane_steps / warp_steps, the share of lane-slots a
+     one-thread-a-lane launch would keep busy) and edge_check on the known
+     grid after that iteration
   6. qrows: the four kernels of the quantised-row walks at 384^3 on the
      same field: nginit_codes on the ongrid codes, neargrid_qrows (refinement
      gradient), neargrid_walk_q unscreened and screened on iteration 1's
@@ -60,8 +64,9 @@ Phases (one line of output each, or a few):
      device with the kernels: ongrid, the internal ('changed', 9) without
      carry, a fresh ('changed', 2)
  14. full: at 256^3, neargrid_walk against its plain version on 2^20
-     random starts with the initial cap, then the full-trajectory
-     ``partition_neargrid`` through the kernels (charge conserved)
+     random starts and on every voxel (the partition's walk, timed) with
+     the initial cap, then the full-trajectory ``partition_neargrid``
+     through the kernels (charge conserved)
 
 Times are CUDA events, median of 5 (the chase's plain version: one run,
 after a warm-up).  Each kernel's bound is the least time
@@ -322,6 +327,7 @@ def partition_kernels(rho, shape, res, phase="kernel"):
         lambda: reductions.remap_labels_plain(labels_mo, table, n_max),
         equal, phase, bound(8 * n + 4 * n_max),
         library=lambda: torch.index_select(table, 0, labels_mo.reshape(-1)))
+    remap_cases(labels_mo, table, n_max, phase)
     # every label is >= 0 here, so bincount computes the same sums
     compare("charge_volume", res,
             lambda: reductions.charge_volume_cuda(rho, labels, n_max),
@@ -334,6 +340,24 @@ def partition_kernels(rho, shape, res, phase="kernel"):
     mf = max_pos[order].long()
     maxima = torch.stack([mf // (ny * nz), (mf // nz) % ny, mf % nz], 1)
     return labels, maxima, n_max, codes
+
+
+def remap_cases(labels, table, k, phase):
+    """The remap kernel against its plain version where its scalar head
+    and tail run: a length that is not a multiple of 4, and contiguous
+    views at storage offsets 1 and 3 (the output takes the input's offset
+    within 16 bytes)."""
+    from pybader_tpu_torch.ops import reductions
+
+    flat = labels.reshape(-1)
+    cases = {"ragged": flat[:-3], "offset 1": flat[1:],
+             "offset 3": flat[3:-2]}
+    for lab in cases.values():
+        equal(reductions.remap_labels_cuda(lab, table, k),
+              reductions.remap_labels_plain(lab, table, k))
+    say(phase, f"remap_labels ({k} labels) equals its plain version on "
+        + ", ".join(
+            f"{name} ({lab.numel()} voxels)" for name, lab in cases.items()))
 
 
 def kernel_phase(rho, atoms_cart, shape):
@@ -412,6 +436,16 @@ def neargrid_phase(rho, shape, codes, labels, res):
         lambda: neargrid.neargrid_walk_cuda(rows, starts, shape, cap, known),
         lambda: neargrid.neargrid_walk_plain(rows, starts, shape, cap, known),
         equal, "neargrid", cost)
+    equal(neargrid.stop_bitmap_cuda(known), neargrid.stop_bitmap_plain(known))
+    bitmap_ms = time_ms(lambda: neargrid.stop_bitmap_cuda(known))
+    occ = neargrid.walk_occupancy(rho.device)
+    say("neargrid", f"neargrid_walk {res['neargrid_walk']['ms']:.3f} ms, of "
+        f"which the stop bitmap's build {bitmap_ms:.3f} ms (equal to its "
+        f"plain version); the launch got {occ['blocks_per_sm']} blocks of "
+        f"{occ['threads']} threads a SM on {occ['sms']} SMs "
+        f"({occ['registers']} registers, {occ['spill_bytes']} spill bytes a "
+        f"thread); lane_steps / warp_steps {st['lane_steps']} / "
+        f"{st['warp_steps']} = {st['lane_steps'] / st['warp_steps']:.4f}")
     n_capped = int((~done).sum())
     if n_capped:
         roots = pointer.resolve_roots_plain(
@@ -851,7 +885,15 @@ def full_phase():
     say("full", f"{WALK_STARTS} random starts at {FULL_SIZE}^3: "
         f"{st['lane_steps']} lane-steps, {st['rows_touched']} rows touched, "
         f"{int((~done).sum())} at the cap {cap}")
-    del rows
+    # the walk the partition runs: every voxel, no stop set
+    every = torch.arange(n, dtype=torch.int32, device=DEVICE)
+    equal(neargrid.neargrid_walk_cuda(rows, every, shape, cap),
+          neargrid.neargrid_walk_plain(rows, every, shape, cap))
+    every_ms = time_ms(lambda: neargrid.neargrid_walk_cuda(rows, every, shape,
+                                                           cap))
+    say("full", f"neargrid_walk of all {n} voxels without a stop set: "
+        f"{every_ms:.3f} ms, equal to its plain version")
+    del rows, every
     _cuda.launches.clear()
     stats = {}
     t0 = time.perf_counter()

@@ -25,6 +25,19 @@ inline int blocks_for(long long n, int device) {
     return want < 1 ? 1 : static_cast<int>(want);
 }
 
+// Blocks of `threads` threads that `kernel` can keep resident on every SM
+// of the device at once, with `smem` bytes of dynamic shared memory each:
+// the grid of a persistent launch.
+template <class Kernel>
+inline int resident_blocks(Kernel kernel, int threads, size_t smem,
+                           int device) {
+    int sms = 132, per_sm = 1;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  smem);
+    return (per_sm < 1 ? 1 : per_sm) * sms;
+}
+
 inline cudaStream_t as_stream(void* s) {
     return reinterpret_cast<cudaStream_t>(s);
 }

@@ -6,8 +6,9 @@
 // _pack_qwords :220), the exact-row walk _walk_segment_packed (:647) as
 // driven by walk (:907), and the quantised-row walks _walk_segment_q (:238)
 // and _walk_segment_qs (:337).  The JAX drain loop's segments and compaction
-// schedule the walks for the TPU without changing their results; here one
-// thread walks a lane to its end in one launch.  The shard walker replaces
+// schedule the walks for the TPU without changing their results; here a
+// thread walks a lane to its end in one launch (the exact walker then takes
+// the next lane).  The shard walker replaces
 // the mesh walker of pybader_tpu/parallel/walk.py:68 (walk_sharded).
 //
 // Exact row layout, 32 bytes, one per voxel, so a walker step reads one
@@ -116,50 +117,138 @@ __global__ void qrows_kernel(const double* __restrict__ rho,
 }
 
 // ----------------------------------------------------------------- walk
-// One thread per lane walks its trajectory to termination or the cap, with
-// pos, prev, the 3-entry history and dr in registers; no host round trip
-// per step.  Per step: fetch the row at pos (stop there if it is a maximum
-// or, when known is given, a known == 2 voxel), then walk.cuh's step.
-// After max_steps steps one more fetch decides done.
+// The exact-row walk: from each start, walk.cuh's step until a maximum (row
+// flag), a stop voxel (known == 2), or the cap; after max_steps steps one
+// more fetch decides done.
 //
-// Bound: the latency of the dependent row gathers.  Each step's address
-// comes from the previous step's row, so a lane reads one 32-byte sector
-// (plus one byte of known) per step and waits for it; throughput comes
-// only from the number of lanes in flight, so the launch gives every lane
-// its own thread.  Lanes of a warp diverge in position and length: the
-// gathers do not coalesce and a warp runs as long as its longest lane.
-__global__ void walk_kernel(const double2* __restrict__ rows,
-                            const int* __restrict__ starts,
-                            const signed char* __restrict__ known,
-                            int* __restrict__ pos_out,
-                            unsigned char* __restrict__ done_out,
-                            long long k, int nx, int ny, int nz,
-                            int max_steps) {
-    const long long lane =
-        static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (lane >= k) return;
+// Bound: device memory, by sector.  A step's address comes from the step
+// before, so a step reads one scattered 32-byte row sector of the 1.8 GB
+// row array (at 384^3) and nothing can be prefetched; the lanes in flight
+// and the card's rate of random sectors set the pace.  The least work is
+// each distinct row read once (0.146 ms for iteration 1 at 384^3: 12.9 M
+// rows, 148.8 M lane-steps).  The design does two things about it:
+//   - persistent lanes with refill: the grid is only what fits on the card
+//     at once, and a thread whose lane ends takes the next lane from a
+//     counter in device memory, so a warp no longer idles while its
+//     longest lane (up to the cap, against a mean of 20-60 steps) walks:
+//     on iteration 1 a one-thread-a-lane launch keeps 36 % of its
+//     lane-slots stepping.  A warp claims kWalkBatch lanes with one
+//     atomicAdd and hands them to its idle threads by ballot.  Results go
+//     to each lane's own index;
+//   - the stop set is a 1-bit-a-voxel bitmap (stop_bitmap_kernel, built
+//     before each walk: 7.1 MB at 384^3, which stays in the 50 MB L2), not
+//     the int8 known grid (57 MB): one sector fewer a step to compete for
+//     L2 once refill keeps every thread walking.  This is JAX's
+//     update_stop (pybader_tpu/ops/neargrid.py:531) for the H100: it bakes
+//     the stop set into the rows, which here would rewrite every sector of
+//     the row array each iteration.
+// Once refill fills the warps, steps run at the card's rate of random
+// row reads, so launches whose warps were already busy gain little
+// (PERF.md).
+constexpr int kWalkThreads = 256;
+constexpr long long kWalkBatch = 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Bit j of the 4 bytes of v set where byte j is 2 (byte 0 lowest).
+__device__ __forceinline__ unsigned twos4(int v) {
+    const unsigned m = __vcmpeq4(static_cast<unsigned>(v), 0x02020202u);
+    return ((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) |
+           ((m >> 28) & 8u);
+}
+
+// bits[w] bit b = (known[32 w + b] == 2).  A thread reads a word's 32
+// bytes as two 16-byte loads (known 16-byte aligned); one thread packs the
+// ragged last word.
+__global__ void stop_bitmap_kernel(const signed char* __restrict__ known,
+                                   unsigned* __restrict__ bits, long long n) {
+    const long long full = n >> 5;
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    for (long long w = static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         w < full; w += stride) {
+        const int4* p = reinterpret_cast<const int4*>(known + (w << 5));
+        const int4 a = __ldg(p), b = __ldg(p + 1);
+        bits[w] = twos4(a.x) | twos4(a.y) << 4 | twos4(a.z) << 8 |
+                  twos4(a.w) << 12 | twos4(b.x) << 16 | twos4(b.y) << 20 |
+                  twos4(b.z) << 24 | twos4(b.w) << 28;
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0 && (n & 31)) {
+        unsigned word = 0;
+        for (long long i = full << 5; i < n; ++i)
+            word |= (known[i] == 2 ? 1u : 0u) << (i & 31);
+        bits[full] = word;
+    }
+}
+
+__global__ void __launch_bounds__(kWalkThreads)
+walk_kernel(const double2* __restrict__ rows, const int* __restrict__ starts,
+            const unsigned* __restrict__ stop, int* __restrict__ pos_out,
+            unsigned char* __restrict__ done_out,
+            unsigned long long* __restrict__ next, long long k, int nx,
+            int ny, int nz, int max_steps) {
+    const int me = threadIdx.x & 31;
+    const unsigned below = (1u << me) - 1u;
     const int nyz = ny * nz;
-    pb::Lane s{starts[lane], -1, -1, -1, -1, 0.0, 0.0, 0.0};
-    if (s.pos < 0) {  // a padding lane, born done at voxel 0
-        pos_out[lane] = 0;
-        done_out[lane] = 1;
-        return;
-    }
-    bool done = false;
-    for (int step = 0;; ++step) {
-        const pb::Row r = pb::load_row(rows, s.pos);
-        if ((r.flags & kMax) || (known != nullptr && known[s.pos] == 2)) {
-            done = true;
-            break;
+    long long lane = -1;  // this thread's lane, -1 while it has none
+    int step = 0;
+    pb::Lane s{0, -1, -1, -1, -1, 0.0, 0.0, 0.0};
+    // the warp's claimed lanes not yet handed out, [claim, claim_end);
+    // uniform across the warp, as is more (the counter may hold lanes)
+    long long claim = 0, claim_end = 0;
+    bool more = true;
+    for (;;) {
+        unsigned idle = __ballot_sync(kFull, lane < 0);
+        while (idle != 0 && more) {
+            if (claim == claim_end) {
+                unsigned long long b = 0;
+                if (me == 0)
+                    b = atomicAdd(next,
+                                  static_cast<unsigned long long>(kWalkBatch));
+                b = __shfl_sync(kFull, b, 0);
+                if (b >= static_cast<unsigned long long>(k)) {
+                    more = false;
+                    break;
+                }
+                claim = static_cast<long long>(b);
+                claim_end = claim + kWalkBatch < k ? claim + kWalkBatch : k;
+            }
+            const long long avail = claim_end - claim;
+            const int rank = __popc(idle & below);
+            if (lane < 0 && rank < avail) {
+                lane = claim + rank;
+                s = pb::Lane{starts[lane], -1, -1, -1, -1, 0.0, 0.0, 0.0};
+                step = 0;
+                if (s.pos < 0) {  // a padding lane, born done at voxel 0
+                    pos_out[lane] = 0;
+                    done_out[lane] = 1;
+                    lane = -1;
+                }
+            }
+            const long long took = __popc(idle);
+            claim += took < avail ? took : avail;
+            idle = __ballot_sync(kFull, lane < 0);
         }
-        if (step == max_steps) break;
-        const int x = s.pos / nyz;
-        const int rem = s.pos - x * nyz;
-        const int y = rem / nz;
-        pb::advance(r, x, y, rem - y * nz, s, nx, ny, nz);
+        if (idle == kFull) break;  // nothing left to claim or walk
+        if (lane >= 0) {
+            // the stop word is read beside the row, so both are in flight
+            const unsigned word =
+                stop != nullptr ? __ldg(&stop[s.pos >> 5]) : 0u;
+            const pb::Row r = pb::load_row(rows, s.pos);
+            const bool stopped =
+                (r.flags & kMax) || ((word >> (s.pos & 31)) & 1u);
+            if (stopped || step == max_steps) {
+                pos_out[lane] = s.pos;
+                done_out[lane] = stopped ? 1 : 0;
+                lane = -1;
+            } else {
+                const int x = s.pos / nyz;
+                const int rem = s.pos - x * nyz;
+                const int y = rem / nz;
+                pb::advance(r, x, y, rem - y * nz, s, nx, ny, nz);
+                ++step;
+            }
+        }
     }
-    pos_out[lane] = s.pos;
-    done_out[lane] = done ? 1 : 0;
 }
 
 // The walk of one shard of a mesh, resumable: the owner-computes hand-off
@@ -174,8 +263,9 @@ __global__ void walk_kernel(const double2* __restrict__ rows,
 // are walk_kernel's, so a lane handed from shard to shard ends where the
 // single-device walk ends it.
 //
-// Bound: the latency of the dependent row gathers, as walk_kernel; the
-// state (48 bytes) is read and written once a launch.
+// Bound: the dependent row gathers, as walk_kernel; the state (48 bytes)
+// is read and written once a launch.  One thread a lane; the stop set is a
+// bool grid of the shard.
 __global__ void walk_shard_kernel(const double2* __restrict__ rows,
                                   const unsigned char* __restrict__ stop,
                                   int* __restrict__ pos, int* __restrict__ prev,
@@ -232,7 +322,8 @@ __global__ void walk_shard_kernel(const double2* __restrict__ rows,
 // Resume quantised-row walks (state in place) for up to max_steps steps:
 // the exact walker's loop on 8-byte q-rows, f32 dr, the stop set read from
 // known == 2; for the screened walk also the error bound and risky flag.
-// Bound: the latency of the dependent 8-byte row gathers, as walk_kernel.
+// Bound: the dependent 8-byte row gathers, as walk_kernel; one thread a
+// lane.
 template <bool kScreened>
 __global__ void walk_q_kernel(const int2* __restrict__ qrows,
                               const signed char* __restrict__ known,
@@ -304,18 +395,54 @@ PB_EXPORT int pb_neargrid_qrows(void* rho, void* codes, void* t_grad,
     return static_cast<int>(cudaGetLastError());
 }
 
-PB_EXPORT int pb_neargrid_walk(void* rows, void* starts, void* known,
-                               void* pos_out, void* done_out, long long k,
-                               int nx, int ny, int nz, int max_steps,
-                               int device, void* stream) {
+// stop: the bitmap of pb_stop_bitmap, or null.  next: a zeroed 64-bit
+// counter, the walk's claim of lanes.
+PB_EXPORT int pb_neargrid_walk(void* rows, void* starts, void* stop,
+                               void* pos_out, void* done_out, void* next,
+                               long long k, int nx, int ny, int nz,
+                               int max_steps, int device, void* stream) {
     cudaSetDevice(device);
     if (k <= 0) return static_cast<int>(cudaGetLastError());
-    const long long blocks = (k + pb::kThreads - 1) / pb::kThreads;
-    walk_kernel<<<static_cast<unsigned int>(blocks), pb::kThreads, 0,
-                  pb::as_stream(stream)>>>(
+    const long long want = (k + kWalkThreads - 1) / kWalkThreads;
+    const int cap =
+        pb::resident_blocks(walk_kernel, kWalkThreads, 0, device);
+    walk_kernel<<<static_cast<unsigned int>(want < cap ? want : cap),
+                  kWalkThreads, 0, pb::as_stream(stream)>>>(
         static_cast<const double2*>(rows), static_cast<const int*>(starts),
-        static_cast<const signed char*>(known), static_cast<int*>(pos_out),
-        static_cast<unsigned char*>(done_out), k, nx, ny, nz, max_steps);
+        static_cast<const unsigned*>(stop), static_cast<int*>(pos_out),
+        static_cast<unsigned char*>(done_out),
+        static_cast<unsigned long long*>(next), k, nx, ny, nz, max_steps);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// bits: (n + 31) / 32 words; known must be 16-byte aligned
+// (cudaErrorInvalidValue if not).
+PB_EXPORT int pb_stop_bitmap(void* known, void* bits, long long n, int device,
+                             void* stream) {
+    cudaSetDevice(device);
+    if (reinterpret_cast<unsigned long long>(known) & 15ull)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n <= 0) return static_cast<int>(cudaGetLastError());
+    stop_bitmap_kernel<<<pb::blocks_for((n >> 5) + 1, device), pb::kThreads,
+                         0, pb::as_stream(stream)>>>(
+        static_cast<const signed char*>(known), static_cast<unsigned*>(bits),
+        n);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// What a walk launch gets, into the host array out[5]: resident blocks per
+// SM, threads a block, SMs, registers a thread, local (spill) bytes.
+PB_EXPORT int pb_neargrid_walk_occupancy(int device, void* out) {
+    cudaSetDevice(device);
+    int* o = static_cast<int*>(out);
+    cudaFuncAttributes a;
+    cudaFuncGetAttributes(&a, walk_kernel);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[0], walk_kernel,
+                                                  kWalkThreads, 0);
+    o[1] = kWalkThreads;
+    cudaDeviceGetAttribute(&o[2], cudaDevAttrMultiProcessorCount, device);
+    o[3] = a.numRegs;
+    o[4] = static_cast<int>(a.localSizeBytes);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,7 +5,7 @@
 // inside each VMEM tile (no scatters on the TPU), which caps them at 256
 // labels; on Hopper a voxel goes straight to its label's slot with an
 // atomic, so these take any label count.  All four are grid-stride loops,
-// bound by device memory: each reads the grid once.
+// bound by device memory: each reads the grid once (remap also writes it).
 
 #include <climits>
 
@@ -60,16 +60,71 @@ __global__ void fill_int_kernel(int* __restrict__ a, int n, int value) {
 // ---------------------------------------------------------------- remap
 // Replaces pallas_reduce.py:remap (_remap_kernel): labels -> table[labels],
 // negatives kept, labels >= k -> 0 (the XLA remap_sweep contract).
-// Bound: 8 bytes a voxel moved; the table stays in L1.
+// Bound: 8 bytes a voxel moved, 0.135 ms at 384^3 on 3.35 TB/s.  A pure
+// stream, so what counts is the bytes in flight: by Little's law HBM at
+// ~600 ns needs about 15 KB of loads in flight per SM, and one 4-byte load
+// a thread (2,048 resident threads) keeps only 8 KB.  So a thread moves
+// 16-byte vectors, kRemapUnroll loads in flight before it uses any, with
+// streaming (evict-first) loads and stores; a scalar head and tail cover
+// a base that is not 16-byte aligned and a ragged count.  The output has
+// the input's offset within 16 bytes (the wrapper allocates it so).  A
+// table of at most kRemapShared entries is staged in shared memory (the
+// blob field has 62); a larger one (~2 M labels on white noise, 8 MB) is
+// read through __ldg and stays in L2.  The grid is what the occupancy API
+// says fits on the card at once.  A device copy of the same bytes is the
+// practical floor (PERF.md).
+constexpr int kRemapUnroll = 4;
+constexpr int kRemapShared = 12288;  // int32 entries: 48 KB
+
+template <bool kShared>
+__device__ __forceinline__ int remap_one(int l, const int* tab,
+                                         const int* __restrict__ table,
+                                         int k) {
+    if (l < 0) return l;
+    if (l >= k) return 0;
+    return kShared ? tab[l] : __ldg(&table[l]);
+}
+
+template <bool kShared>
 __global__ void remap_kernel(const int* __restrict__ labels,
                              const int* __restrict__ table,
-                             int* __restrict__ out, long long n, int k) {
-    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         i < n; i += stride) {
-        const int l = labels[i];
-        out[i] = l < 0 ? l : (l < k ? __ldg(&table[l]) : 0);
+                             int* __restrict__ out, long long n, int k,
+                             int head) {
+    extern __shared__ int tab[];
+    if (kShared) {
+        for (int i = threadIdx.x; i < k; i += blockDim.x)
+            tab[i] = table[i];
+        __syncthreads();
+    }
+    const long long nvec = (n - head) >> 2;
+    const int4* lv = reinterpret_cast<const int4*>(labels + head);
+    int4* ov = reinterpret_cast<int4*>(out + head);
+    const long long tile = static_cast<long long>(blockDim.x) * kRemapUnroll;
+    for (long long t0 = blockIdx.x * tile; t0 < nvec;
+         t0 += static_cast<long long>(gridDim.x) * tile) {
+        int4 v[kRemapUnroll];
+#pragma unroll
+        for (int j = 0; j < kRemapUnroll; ++j) {
+            const long long i = t0 + j * blockDim.x + threadIdx.x;
+            if (i < nvec) v[j] = __ldcs(lv + i);
+        }
+#pragma unroll
+        for (int j = 0; j < kRemapUnroll; ++j) {
+            const long long i = t0 + j * blockDim.x + threadIdx.x;
+            if (i < nvec)
+                __stcs(ov + i,
+                       make_int4(remap_one<kShared>(v[j].x, tab, table, k),
+                                 remap_one<kShared>(v[j].y, tab, table, k),
+                                 remap_one<kShared>(v[j].z, tab, table, k),
+                                 remap_one<kShared>(v[j].w, tab, table, k)));
+        }
+    }
+    // the head [0, head) and the tail [head + 4 nvec, n): under 8 voxels
+    if (blockIdx.x == 0 && threadIdx.x < 8) {
+        const int t = threadIdx.x;
+        const long long i = t < head ? t : head + 4 * nvec + (t - head);
+        if (i < n)
+            out[i] = remap_one<kShared>(labels[i], tab, table, k);
     }
 }
 
@@ -252,13 +307,39 @@ PB_EXPORT int pb_min_pair(void* labels, void* mask, void* mn, void* mm,
     return static_cast<int>(cudaGetLastError());
 }
 
+// out must have labels' offset within 16 bytes (cudaErrorInvalidValue if
+// not): both move in 16-byte vectors after the same scalar head.
 PB_EXPORT int pb_remap(void* labels, void* table, void* out, long long n,
                        int k, int device, void* stream) {
     cudaSetDevice(device);
-    remap_kernel<<<pb::blocks_for(n, device), pb::kThreads, 0,
-                   pb::as_stream(stream)>>>(
-        static_cast<const int*>(labels), static_cast<const int*>(table),
-        static_cast<int*>(out), n, k);
+    const auto phase = [](void* p) {
+        return reinterpret_cast<unsigned long long>(p) & 15ull;
+    };
+    if (phase(labels) != phase(out) || phase(labels) % 4 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    long long head = static_cast<long long>((16 - phase(labels)) & 15) / 4;
+    if (head > n) head = n;
+    const long long per_block =
+        static_cast<long long>(pb::kThreads) * kRemapUnroll;
+    const long long want = ((n - head) / 4 + per_block - 1) / per_block;
+    const bool shared = k <= kRemapShared;
+    const size_t smem = shared ? static_cast<size_t>(k) * sizeof(int) : 0;
+    const int cap = shared ? pb::resident_blocks(remap_kernel<true>,
+                                                 pb::kThreads, smem, device)
+                           : pb::resident_blocks(remap_kernel<false>,
+                                                 pb::kThreads, 0, device);
+    const int blocks =
+        static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+    const int* l = static_cast<const int*>(labels);
+    const int* t = static_cast<const int*>(table);
+    int* o = static_cast<int*>(out);
+    cudaStream_t s = pb::as_stream(stream);
+    if (shared)
+        remap_kernel<true><<<blocks, pb::kThreads, smem, s>>>(
+            l, t, o, n, k, static_cast<int>(head));
+    else
+        remap_kernel<false><<<blocks, pb::kThreads, 0, s>>>(
+            l, t, o, n, k, static_cast<int>(head));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,7 +55,10 @@ _ENTRIES = {
     "pb_edge_find": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pb_edge_check": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pb_neargrid_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "pb_neargrid_walk": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    "pb_neargrid_walk": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                         _P),
+    "pb_stop_bitmap": (_P, _P, _L, _I, _P),
+    "pb_neargrid_walk_occupancy": (_I, _P),
     "pb_neargrid_qrows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pb_neargrid_walk_q": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                            _I, _I, _P),

@@ -3,10 +3,13 @@
 Port of :mod:`pybader_tpu.ops.neargrid`: the exact rows
 (``precompute_rows``, with ``_gd_components``, ``_denom_flags`` and
 ``_pack_parent``) and their walk (``_walk_segment_packed`` as ``walk``
-drives it), and the quantised 8-byte rows (``precompute_qrows``) with their
-unscreened and screened walks (``_walk_segment_q``, ``_walk_segment_qs``),
-the drain loop ``walk_drain`` (block phase first, then the full step budget)
-and ``walk_drain_screened`` (risky lanes walked again on exact rows).  The
+drives it; the CUDA walker reads the stop set from a bitmap,
+:func:`stop_bitmap_cuda`, where JAX bakes it into the rows with
+``update_stop``), and the quantised 8-byte rows (``precompute_qrows``)
+with their unscreened and screened walks (``_walk_segment_q``,
+``_walk_segment_qs``), the drain loop ``walk_drain`` (block phase first,
+then the full step budget) and ``walk_drain_screened`` (risky lanes
+walked again on exact rows).  The
 drain loop's segments, compaction and pipelined counts schedule the walk
 for the TPU without changing its results and are not ported; its bucket
 ladder is, because the padded lane count decides the block rounds
@@ -34,6 +37,7 @@ q walks are f32 as in JAX, each sum and product rounded on its own.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -176,8 +180,11 @@ def neargrid_walk_plain(rows, starts, shape, max_steps: int, known=None,
                         stats=None):
     """Plain PyTorch walk: every live lane steps in lockstep, and lanes
     leave the batch as they finish.  ``stats``, if a dict, receives
-    ``lane_steps`` (steps taken over all lanes) and ``rows_touched``
-    (distinct voxels whose row was read)."""
+    ``lane_steps`` (steps taken over all lanes), ``rows_touched``
+    (distinct voxels whose row was read) and ``warp_steps``: over each
+    group of 32 consecutive lanes, 32 times the group's longest walk, the
+    lane-slots a one-thread-a-lane launch holds (``lane_steps /
+    warp_steps`` is the share of them that step)."""
     nx, ny, nz = shape
     dev = rows.device
     dims = torch.tensor([nx, ny, nz], device=dev)
@@ -195,10 +202,11 @@ def neargrid_walk_plain(rows, starts, shape, max_steps: int, known=None,
     prev = torch.full((k,), -1, dtype=torch.long, device=dev)
     hist = torch.full((k, 3), -1, dtype=torch.long, device=dev)
     dr = torch.zeros((k, 3), dtype=torch.float64, device=dev)
-    touched = None
+    touched = taken = None
     lane_steps = 0
     if stats is not None:
         touched = torch.zeros(rows.shape[0], dtype=torch.bool, device=dev)
+        taken = torch.zeros(starts.numel(), dtype=torch.long, device=dev)
     for step in range(max_steps + 1):
         if touched is not None:
             touched[pos] = True
@@ -208,6 +216,8 @@ def neargrid_walk_plain(rows, starts, shape, max_steps: int, known=None,
         if bool(term.any()):
             out_pos[lane[term]] = pos[term]
             out_done[lane[term]] = True
+            if taken is not None:
+                taken[lane[term]] = step
             keep = ~term
             lane, pos, prev = lane[keep], pos[keep], prev[keep]
             hist, dr = hist[keep], dr[keep]
@@ -220,8 +230,13 @@ def neargrid_walk_plain(rows, starts, shape, max_steps: int, known=None,
             prev, hist, dr, dims, shape)
     out_pos[lane] = pos  # lanes still walking at the cap
     if stats is not None:
+        taken[lane] = max_steps
+        groups = -(-taken.numel() // 32)
+        warps = torch.zeros(groups * 32, dtype=torch.long, device=dev)
+        warps[:taken.numel()] = taken
         stats["lane_steps"] = lane_steps
         stats["rows_touched"] = int(touched.sum())
+        stats["warp_steps"] = 32 * int(warps.view(groups, 32).amax(1).sum())
     return out_pos.to(torch.int32), out_done
 
 
@@ -247,7 +262,8 @@ def _exact_step(g, par, ongrid, xyz, pos, prev, hist, dr, dims, shape):
 
 
 def neargrid_walk_cuda(rows, starts, shape, max_steps: int, known=None):
-    """Launch ``pb_neargrid_walk`` (csrc/neargrid.cu)."""
+    """Launch ``pb_neargrid_walk`` (csrc/neargrid.cu), with ``known`` as
+    the bitmap of :func:`stop_bitmap_cuda` and a zeroed lane counter."""
     nx, ny, nz = shape
     n = nx * ny * nz
     _cuda.check(rows, torch.float64, "rows", (n, 4), per_voxel=4)
@@ -258,14 +274,58 @@ def neargrid_walk_cuda(rows, starts, shape, max_steps: int, known=None):
         lo, hi = torch.aminmax(starts)
         if int(lo) < -1 or int(hi) >= n:
             raise ValueError(f"starts: flat indices must lie in [-1, {n})")
+    stop = None if known is None else stop_bitmap_cuda(known)
     pos = torch.empty(starts.shape, dtype=torch.int32, device=rows.device)
     done = torch.empty(starts.shape, dtype=torch.bool, device=rows.device)
+    claimed = torch.zeros((1,), dtype=torch.int64, device=rows.device)
     _cuda.call("pb_neargrid_walk", rows.data_ptr(), starts.data_ptr(),
-               None if known is None else known.data_ptr(), pos.data_ptr(),
-               done.data_ptr(), starts.numel(), nx, ny, nz, int(max_steps),
-               rows.device.index or 0, _cuda.stream(rows))
+               None if stop is None else stop.data_ptr(), pos.data_ptr(),
+               done.data_ptr(), claimed.data_ptr(), starts.numel(), nx, ny,
+               nz, int(max_steps), rows.device.index or 0,
+               _cuda.stream(rows))
     _cuda.launches["neargrid_walk"] += 1
     return pos, done
+
+
+def walk_occupancy(device) -> dict:
+    """What a ``pb_neargrid_walk`` launch gets on a CUDA ``device``:
+    resident blocks per SM, threads a block, SMs, registers a thread and
+    local (spill) bytes a thread."""
+    out = (ctypes.c_int * 5)()
+    _cuda.call("pb_neargrid_walk_occupancy", torch.device(device).index or 0,
+               ctypes.addressof(out))
+    return dict(zip(("blocks_per_sm", "threads", "sms", "registers",
+                     "spill_bytes"), out))
+
+
+# ----------------------------------------------------------- stop bitmap
+def stop_bitmap_plain(known):
+    """The stop set ``known == 2`` of the exact walk as a bitmap (JAX's
+    ``update_stop`` for the CUDA walker): int32 words holding the bits of
+    uint32, bit ``b`` of word ``w`` set where flat voxel ``32 w + b`` is
+    2; ``ceil(N / 32)`` words, the last one padded with 0."""
+    flat = (known.reshape(-1) == 2).long()
+    words = -(-flat.numel() // 32)
+    bits = torch.zeros(words * 32, dtype=torch.long, device=known.device)
+    bits[:flat.numel()] = flat
+    shift = torch.arange(32, device=known.device)
+    return _i32((bits.view(words, 32) << shift).sum(1))
+
+
+def stop_bitmap_cuda(known):
+    """Launch ``pb_stop_bitmap`` (csrc/neargrid.cu): the bitmap of
+    :func:`stop_bitmap_plain`, which :func:`neargrid_walk_cuda` builds
+    before each walk."""
+    _cuda.check(known, torch.int8, "known")
+    if known.data_ptr() % 16:
+        known = known.clone()  # the kernel reads 16-byte vectors
+    n = known.numel()
+    bits = torch.empty((-(-n // 32),), dtype=torch.int32,
+                       device=known.device)
+    _cuda.call("pb_stop_bitmap", known.data_ptr(), bits.data_ptr(), n,
+               known.device.index or 0, _cuda.stream(known))
+    _cuda.launches["stop_bitmap"] += 1
+    return bits
 
 
 # ------------------------------------------------------------ shard walk

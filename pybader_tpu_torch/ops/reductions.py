@@ -84,11 +84,24 @@ def remap_labels_plain(labels, table, num_segments: int):
     return torch.where(lab < 0, labels.to(torch.int32), out)
 
 
+def aligned_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty contiguous tensor shaped like ``t`` whose address has the
+    same offset within 16 bytes as ``t``'s, so that a kernel can move both
+    in 16-byte vectors after the same scalar head (``t`` may be a view at
+    any storage offset)."""
+    shift = (t.data_ptr() % 16) // t.element_size()
+    if shift == 0:
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    return buf[shift:].view(t.shape)
+
+
 def remap_labels_cuda(labels, table, num_segments: int):
-    """Launch ``pb_remap`` (csrc/reduce.cu)."""
+    """Launch ``pb_remap`` (csrc/reduce.cu); ``labels`` may be any
+    contiguous int32 tensor, a view at a storage offset included."""
     _cuda.check(labels, torch.int32, "labels")
     _cuda.check(table, torch.int32, "table", (num_segments,))
-    out = torch.empty_like(labels)
+    out = aligned_like(labels)
     _cuda.call("pb_remap", labels.data_ptr(), table.data_ptr(),
                out.data_ptr(), labels.numel(), num_segments,
                labels.device.index or 0, _cuda.stream(labels))

@@ -104,6 +104,76 @@ def test_walker_on_jax_rows_is_bit_exact(stop, cap):
         assert (~done).sum() > 0
 
 
+def numpy_bitmap(known: np.ndarray) -> np.ndarray:
+    """known == 2 bit-packed with numpy: bit b of uint32 word w is flat
+    voxel 32 w + b, the last word padded with 0."""
+    b = np.packbits(known.reshape(-1) == 2, bitorder="little")
+    return np.concatenate([b, np.zeros(-b.size % 4, np.uint8)]).view("<u4")
+
+
+# 105, 2688 (= 84 * 32), 1 and 33 voxels
+@pytest.mark.parametrize("shape", [(3, 5, 7), SHAPE, (1, 1, 1), (1, 3, 11)])
+def test_stop_bitmap_matches_numpy_packbits(shape):
+    known = np.random.default_rng(11).integers(
+        -2, 3, size=shape).astype(np.int8)
+    got = tng.stop_bitmap_plain(torch.from_numpy(known))
+    assert got.dtype == torch.int32 and got.numel() == -(-known.size // 32)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  numpy_bitmap(known))
+
+
+def test_stop_bitmap_matches_jax_stop_bits():
+    """The bitmap holds JAX's stop set: the bits update_stop bakes into
+    its rows for refinement's first known grid."""
+    rho = make_density(2)
+    jr, _ = jax_rows(rho, strict_grad=True)
+    known = edge_known(rho)
+    jr = jng.update_stop(jr, jnp.asarray(known.reshape(-1) == 2))
+    stop = (np.asarray(jr)[:, 3].astype(np.int64) & (1 << 30)) != 0
+    assert stop.any()
+    bits = tng.stop_bitmap_plain(torch.from_numpy(known)).numpy().view(
+        np.uint32)
+    i = np.arange(N)
+    got = (bits[i // 32] >> (i % 32).astype(np.uint32)) & 1
+    np.testing.assert_array_equal(got.astype(bool), stop)
+
+
+@pytest.mark.parametrize("stop", [False, True])
+def test_walker_warp_steps_match_jax_count(stop):
+    """``warp_steps`` against a numpy count of per-lane walk lengths read
+    off JAX's walker: a lane that ends after L steps is done at every cap
+    from L on, so L is the number of caps below the cap where it is not
+    done.  Lanes are shuffled, with padding lanes and a last group of 25."""
+    rho = make_density(2)
+    jr, _ = jax_rows(rho, strict_grad=stop)
+    rows = tng.rows_from_jax_rows(np.asarray(jr))
+    rng = np.random.default_rng(12)
+    starts = rng.permutation(N)[:N - 7].astype(np.int32)
+    starts[::11] = -1
+    known = None
+    cap = tng.initial_cap(SHAPE)
+    if stop:
+        known = edge_known(rho)
+        jr = jng.update_stop(jr, jnp.asarray(known.reshape(-1) == 2))
+        cap = tng.refine_cap(SHAPE)
+    state = jng._init_state(jnp.asarray(starts), jnp.float64)
+    length = np.zeros(starts.size, np.int64)
+    for c in range(cap):
+        done = np.asarray(jng._walk_segment_packed(state, jr, SHAPE, c)[4])
+        if done.all():
+            break
+        length += ~done
+    groups = np.zeros(-(-starts.size // 32) * 32, np.int64)
+    groups[:starts.size] = length
+    st = {}
+    tng.neargrid_walk_plain(
+        rows, torch.from_numpy(starts), SHAPE, cap,
+        None if known is None else torch.from_numpy(known), stats=st)
+    assert st["lane_steps"] == int(length.sum())
+    assert st["warp_steps"] == 32 * int(groups.reshape(-1, 32).max(1).sum())
+    assert st["lane_steps"] < st["warp_steps"]
+
+
 @pytest.mark.parametrize("strict_grad", [False, True])
 def test_walker_matches_oracle_trajectory(strict_grad):
     rho = make_density(3)
@@ -240,3 +310,8 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tng.neargrid_walk_cuda(rows, torch.zeros(4, dtype=torch.int32),
                                SHAPE, 8)
+
+
+def test_stop_bitmap_kernel_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tng.stop_bitmap_cuda(torch.zeros(SHAPE, dtype=torch.int8))

@@ -52,7 +52,16 @@ def test_min_pair_many_labels_matches_xla():
     np.testing.assert_array_equal(mm.numpy(), np.asarray(xmm))
 
 
-@pytest.mark.parametrize("shape,k", [((30000,), 37), ((12, 14, 16), 9)])
+def offset_view(a: np.ndarray) -> torch.Tensor:
+    """``a`` as a contiguous tensor view at storage offset 1."""
+    buf = torch.empty(a.size + 1, dtype=torch.int32)
+    buf[1:] = torch.from_numpy(a.reshape(-1))
+    return buf[1:].view(a.shape)
+
+
+# lengths that are multiples of 4 and ragged ones (30001, 13 * 14 * 15)
+@pytest.mark.parametrize("shape,k", [((30000,), 37), ((12, 14, 16), 9),
+                                     ((30001,), 37), ((13, 14, 15), 9)])
 def test_remap_matches_pallas_and_xla(shape, k):
     rng = np.random.default_rng(7)
     lab = rng.integers(-1, k, size=shape).astype(np.int32)
@@ -65,6 +74,22 @@ def test_remap_matches_pallas_and_xla(shape, k):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want_p))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want_x))
     assert (got.numpy()[lab < 0] == -1).all()
+    view = offset_view(lab)
+    assert view.storage_offset() == 1 and view.is_contiguous()
+    got_v = tr.remap_labels(view, torch.from_numpy(table), k)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_x))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 5])
+def test_remap_output_shares_the_input_phase(offset):
+    """The kernel's output is allocated at the input's offset within 16
+    bytes, so both move in 16-byte vectors after the same head."""
+    buf = torch.arange(101, dtype=torch.int32)
+    lab = buf[offset:offset + 90].view(9, 10)
+    out = tr.aligned_like(lab)
+    assert out.shape == lab.shape and out.dtype == lab.dtype
+    assert out.is_contiguous()
+    assert out.data_ptr() % 16 == lab.data_ptr() % 16
 
 
 def test_remap_many_labels_matches_xla():

@@ -40,7 +40,8 @@ HAND_WRITTEN = ("ongrid_step_codes_kernel", "jump_kernel", "min_pair_kernel",
                 "zero_sums_kernel", "fill_u64_kernel", "find_flags_kernel",
                 "find_known_kernel", "check_flags_kernel",
                 "check_near_kernel", "rows_kernel", "walk_kernel",
-                "pointer_kernel", "gather_kernel", "walk_shard_kernel")
+                "pointer_kernel", "gather_kernel", "walk_shard_kernel",
+                "stop_bitmap_kernel")
 ONGRID = {"method": "ongrid", "refine_method": "ongrid"}
 
 
