@@ -11,14 +11,19 @@ Phases (one line of output each, or a few):
   3. field: a 384^3 f64 blob density (60 blobs, seed 1) made on the card
   4. kernel: each of the six ongrid-path kernels against its plain PyTorch
      version on the card, on the inputs the ongrid path gives it at 384^3;
-     remap_labels also at a ragged length and at storage offsets 1 and 3
+     remap_labels also at a ragged length and at storage offsets 1 and 3;
+     resolve_roots also on a ramp along x (chains across every tile) and a
+     flat parent of odd length, with its pass counts
   5. neargrid: the four refinement kernels at 384^3 on the same field:
      edge_find on the ongrid labels, neargrid_rows for both gradient tests,
      neargrid_walk on iteration 1's full edge set (stop at known == 2, the
      refinement cap; with the build time of its stop bitmap, the occupancy
      its launch got and lane_steps / warp_steps, the share of lane-slots a
      one-thread-a-lane launch would keep busy) and edge_check on the known
-     grid after that iteration
+     grid after that iteration (dense), then on 0.6 M of its edges sampled
+     with a seed (sparse), the fixture's ragged 24x28x32 grid, a 37x29x45
+     grid, a grid with an axis of 2 and the field with 25 % vacuum, with
+     the share of tiles that skip the labels
   6. qrows: the four kernels of the quantised-row walks at 384^3 on the
      same field: nginit_codes on the ongrid codes, neargrid_qrows (refinement
      gradient), neargrid_walk_q unscreened and screened on iteration 1's
@@ -44,7 +49,9 @@ Phases (one line of output each, or a few):
      hybrid: ongrid init, ('changed', 9) internal refinement chained into
      ('changed', 2)); all ten kernels must have launched, charge must be
      conserved, and the volume maps must equal the same call with every op
-     on its plain version on the card
+     on its plain version on the card; then an untimed second call, and
+     edge_check against its plain version on the input its last
+     edge_check received
  12. variants: ``Bader(...)()`` at 384^3 under PYBADER_TPU_HYBRID_INIT=
      nginit, PYBADER_TPU_QROWS=internal and PYBADER_TPU_BLOCK_WALK=1, then
      under PYBADER_TPU_BLOCK_WALK=1 alone (screened walks); each must launch
@@ -309,6 +316,7 @@ def partition_kernels(rho, shape, res, phase="kernel"):
         lambda: pointer.resolve_roots_cuda(parent),
         lambda: pointer.resolve_roots_plain(parent), equal, phase,
         bound(8 * n))
+    roots_passes(parent, "ongrid parents", phase)
     is_max = codes == 13
     n_max = int(is_max.sum())
     rank = torch.cumsum(is_max.reshape(-1), 0) - 1
@@ -342,6 +350,44 @@ def partition_kernels(rho, shape, res, phase="kernel"):
     return labels, maxima, n_max, codes
 
 
+def roots_passes(parent, name, phase):
+    """resolve_roots' global passes after its tile pass and the plain
+    version's doubling passes (the last of each moves nothing), and the
+    kernel's time."""
+    from pybader_tpu_torch.ops import pointer
+
+    st, st_p = {}, {}
+    equal(pointer.resolve_roots_cuda(parent, st),
+          pointer.resolve_roots_plain(parent, st_p))
+    ms = time_ms(lambda: pointer.resolve_roots_cuda(parent))
+    say(phase, f"resolve_roots on {name} {tuple(parent.shape)}: equal to "
+        f"its plain version; {st['passes']} global passes after the tile "
+        f"pass (plain doubling: {st_p['passes']}); {ms:.3f} ms")
+
+
+def roots_inputs(shape, device):
+    """Parents with long chains or not 3-D: a ramp along x (every chain
+    runs to the last plane, across every tile) and a flat parent of odd
+    length (steps of 0-7 voxels forward, 1 in 64 a root; seed 6)."""
+    n = int(np.prod(shape))
+    idx = torch.arange(n, dtype=torch.int32, device=device).view(shape)
+    plane = shape[1] * shape[2]
+    ramp = torch.where(idx < n - plane, idx + plane, idx)
+    gen = torch.Generator(device=device).manual_seed(6)
+    m = n - 1
+    step = torch.randint(0, 8, (m,), generator=gen, device=device)
+    step[torch.rand(m, generator=gen, device=device) < 1 / 64] = 0
+    pos = torch.arange(m, device=device)
+    flat = torch.minimum(pos + step, torch.full_like(pos, m - 1))
+    return {"a ramp along x": ramp, "a flat parent": flat.to(torch.int32)}
+
+
+def roots_cases(shape, phase):
+    """resolve_roots against its plain version on :func:`roots_inputs`."""
+    for name, parent in roots_inputs(shape, DEVICE).items():
+        roots_passes(parent, name, phase)
+
+
 def remap_cases(labels, table, k, phase):
     """The remap kernel against its plain version where its scalar head
     and tail run: a length that is not a multiple of 4, and contiguous
@@ -368,6 +414,7 @@ def kernel_phase(rho, atoms_cart, shape):
 
     res = {}
     labels, maxima, n_max, codes = partition_kernels(rho, shape, res)
+    roots_cases(shape, "kernel")
     lat = torch.as_tensor(LATTICE, device=rho.device)
     atoms_t = torch.as_tensor(atoms_cart, device=rho.device)
     maxima_cart = (maxima.double() / torch.as_tensor(
@@ -456,10 +503,103 @@ def neargrid_phase(rho, shape, codes, labels, res):
     compare("edge_check", res,
             lambda: edges.edge_check_cuda(known1, labels1, is_max),
             lambda: edges.edge_check_plain(known1, labels1, is_max), equal,
-            "neargrid", bound(7 * n))
+            "neargrid", check_cost(known1, labels1))
     say("neargrid", f"iteration 1: {starts.numel()} edges walked "
         f"({st['lane_steps']} lane-steps, {st['rows_touched']} rows "
         f"touched), {changed} changed, {n_capped} at the cap {cap}")
+    check_case("dense, iteration 1", known1, labels1, is_max)
+    gen = torch.Generator(device=rho.device).manual_seed(5)
+    sparse = sampled_edges(known1, 600_000, gen)
+    check_case("sparse, 0.6 M sampled edges", sparse, labels1, is_max)
+    edge_check_cases(rho, is_max, gen)
+
+
+def check_cost(known, labels):
+    """edge_check's bound from this run's data: known read and written
+    everywhere (2 bytes a voxel), the 4-byte labels and 1-byte is_max
+    where the function reads them (``edges.check_reads``)."""
+    from pybader_tpu_torch.ops import edges
+
+    lab, mx = edges.check_reads(known, labels)
+    return bound(2 * known.numel() + 4 * int(lab.sum()) + int(mx.sum()))
+
+
+def check_case(name, known, labels, is_max, phase="neargrid"):
+    """edge_check against its plain version on one input; its time, its
+    bound and the share of tiles that skipped labels and is_max."""
+    from pybader_tpu_torch.ops import edges
+
+    equal(edges.edge_check_cuda(known, labels, is_max),
+          edges.edge_check_plain(known, labels, is_max))
+    active = edges.check_tiles_active(known)
+    ms = time_ms(lambda: edges.edge_check_cuda(known, labels, is_max))
+    say(phase, f"edge_check on {name} {tuple(known.shape)}: equal to its "
+        f"plain version; {int((known == -2).sum())} edges, "
+        f"{int((~active).sum())} of {active.numel()} tiles skipped "
+        f"({float((~active).float().mean()):.4f}); {ms:.3f} ms, bound "
+        f"{check_cost(known, labels)['bound_ms']:.3f} ms")
+
+
+def sampled_edges(known, count, gen):
+    """known with only ``count`` of its -2 voxels, chosen with ``gen``; the
+    other edges become -1."""
+    flat = known.reshape(-1).clone()
+    edge = torch.nonzero(flat == -2).reshape(-1)
+    flat[edge] = -1
+    keep = torch.randperm(edge.numel(), generator=gen,
+                          device=known.device)[:count]
+    flat[edge[keep]] = -2
+    return flat.view(known.shape)
+
+
+def perturbed(known, labels, gen):
+    """One refinement iteration's changes on an edge_find grid: half the
+    edges drop to -1 and a tenth take the next basin's label."""
+    edge = known == -2
+    kn = torch.where(edge & (torch.rand(known.shape, generator=gen,
+                                        device=known.device) < 0.5),
+                     -1, known).to(torch.int8)
+    flip = edge & (torch.rand(known.shape, generator=gen,
+                              device=known.device) < 0.1)
+    lab = torch.where(flip, (labels + 1) % (int(labels.max()) + 1), labels)
+    return kn, lab.to(torch.int32)
+
+
+def edge_check_inputs(rho, is_max, gen):
+    """Inputs (name, known, labels, is_max) where edge_check's tiles are
+    ragged or its halo wraps: the fixture's 24x28x32 grid, a 37x29x45 noise
+    grid (no 16-byte rows), a 2x30x40 grid (the halo wraps onto itself),
+    and the blob field with 25 % of it vacuum; each an edge_find grid after
+    :func:`perturbed`."""
+    from pybader_tpu_torch import grid, pipeline
+    from pybader_tpu_torch.io import vasp
+    from pybader_tpu_torch.ops import edges, stencil
+
+    density, lattice, _, _ = vasp.read(FIXTURE)
+    fields = [("the fixture", torch.as_tensor(density["charge"],
+                                              device=rho.device), lattice)]
+    for shp in ((37, 29, 45), (2, 30, 40)):
+        fields.append(("noise", torch.rand(shp, dtype=torch.float64,
+                                            generator=gen,
+                                            device=rho.device), LATTICE))
+    for name, field, lat in fields:
+        w = tuple(grid.distance_weights(lat, field.shape))
+        lab, _ = pipeline.partition_ongrid(field, None, w)
+        mx = stencil.ongrid_step_codes_cuda(field, w) == 13
+        kn, lab = perturbed(edges.edge_find_cuda(lab, mx), lab, gen)
+        yield name, kn, lab, mx
+    vac = rho <= rho.reshape(-1).kthvalue(rho.numel() // 4).values
+    w = tuple(grid.distance_weights(LATTICE, rho.shape))
+    lab, _ = pipeline.partition_ongrid(rho, vac, w)
+    mx = is_max & ~vac
+    kn, lab = perturbed(edges.edge_find_cuda(lab, mx), lab, gen)
+    yield "25 % vacuum", kn, lab, mx
+
+
+def edge_check_cases(rho, is_max, gen):
+    """edge_check against its plain version on :func:`edge_check_inputs`."""
+    for case in edge_check_inputs(rho, is_max, gen):
+        check_case(*case)
 
 
 def state_equal(a, b):
@@ -732,6 +872,22 @@ def refine_iterations(record):
 
 
 @contextmanager
+def last_edge_check(last):
+    """Keep, in ``last``, a copy of the inputs of the last edge_check that
+    refinement calls (refinement updates them in place afterwards)."""
+    from pybader_tpu_torch import pipeline
+
+    real = pipeline.edge_check
+
+    def recorded(known, labels, is_max):
+        last[:] = [known.clone(), labels.clone(), is_max]
+        return real(known, labels, is_max)
+
+    with mock.patch.object(pipeline, "edge_check", recorded):
+        yield
+
+
+@contextmanager
 def environ(values):
     """Set environment variables for the block, then restore them."""
     old = {k: os.environ.get(k) for k in values}
@@ -796,6 +952,11 @@ def default_phase(rho, atoms_cart, tmp):
     if missing:
         raise AssertionError(f"default path launched no {missing}")
     check_charge(b, density)
+    last = []
+    with last_edge_check(last):
+        blob_bader(density, atoms_cart, tmp)()
+    check_case("the default call's last input", *last, phase="default")
+    del last
     say("default", f"{SIZE}^3 Bader()() default profile: {seconds:.3f} s, "
         f"{len(b.bader_charge)} basins, peak device memory {peak} bytes")
     say("default", "stage seconds " + json.dumps(b.stage_seconds))
@@ -955,13 +1116,12 @@ def chase_phase(shape, codes):
         f"equals chase_plain on both ({ms:.3f} ms on the whole grid)")
 
 
-def mesh_chase_check(rho, shape, mesh, weights, res):
-    """The chase kernel against its plain version on the inputs of the
-    mesh's first chase round on shard 0: the padded block with its frozen
-    ring of code 13 and the halo from the neighbouring shards, seeded as
-    the mesh partition seeds it (the table's row) and with the one-step
-    parents of the cap-fire roots."""
-    from pybader_tpu_torch.ops import chase
+def mesh_chase_inputs(rho, shape, mesh, weights):
+    """The chase's inputs in the mesh's first chase round on shard 0: the
+    padded block's codes with their frozen ring of code 13, and its values
+    with the halo from the neighbouring shards, seeded as the mesh
+    partition seeds them and as the one-step parents of the cap-fire roots.
+    returns (codes, seed values, parent values, the number of maxima)."""
     from pybader_tpu_torch.parallel import mesh as pmesh
     from pybader_tpu_torch.parallel import sharded
     from pybader_tpu_torch.parallel.chase import pin_codes
@@ -969,18 +1129,27 @@ def mesh_chase_check(rho, shape, mesh, weights, res):
     lay = pmesh.Layout(mesh, shape)
     bk = sharded.step_codes(pmesh.shard(lay, rho), weights)
     seed, _, n_max = sharded._seed_local(bk, None)
-    codes = pin_codes(bk)[0]
-    values = pmesh.halo(seed, 1)[0].contiguous()
+    parent = pmesh.Sharded(lay, [lay.parent(b, s)
+                                 for s, b in enumerate(bk.blocks)])
+    return (pin_codes(bk)[0], pmesh.halo(seed, 1)[0].contiguous(),
+            pmesh.halo(parent, 1)[0].contiguous(), n_max)
+
+
+def mesh_chase_check(rho, shape, mesh, weights, res):
+    """The chase kernel against its plain version on
+    :func:`mesh_chase_inputs`: the flood seed (the table's row) and the
+    one-step parents."""
+    from pybader_tpu_torch.ops import chase
+
+    codes, values, parents, n_max = mesh_chase_inputs(rho, shape, mesh,
+                                                      weights)
     # read 1 byte of code and 4 of value, write 4: the jump passes' pointer
     # scratch is the kernel's own traffic, not the function's
     compare("chase", res, lambda: chase.chase_cuda(values, codes),
             lambda: chase.chase_plain(values, codes), chase_same, "mesh",
             bound(9 * values.numel()), plain_reps=1)
-    parent = pmesh.Sharded(lay, [lay.parent(b, s)
-                                 for s, b in enumerate(bk.blocks)])
-    values = pmesh.halo(parent, 1)[0].contiguous()
-    chase_same(chase.chase_cuda(values, codes),
-               chase.chase_plain(values, codes))
+    chase_same(chase.chase_cuda(parents, codes),
+               chase.chase_plain(parents, codes))
     say("mesh", f"chase equals chase_plain on shard 0's padded "
         f"{tuple(codes.shape)} block of the first round ({n_max} maxima "
         f"seeded, and the one-step parents)")

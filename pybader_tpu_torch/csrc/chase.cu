@@ -14,8 +14,8 @@
 // skip flags, in-place aliasing and a ladder of tile configs.  All of that
 // works around slow TPU gathers.  Hopper gathers fast, so this kernel:
 //   1. derives each voxel's pointer from its code (pointer_kernel),
-//   2. jumps the pointers in place to their roots (jump.cuh, shared with
-//      flood.cu),
+//   2. jumps the pointers in place to their roots (jump.cuh's
+//      jump_to_fixed_point, shared with flood.cu),
 //   3. gathers the values at the roots and counts the voxels whose value
 //      changed (gather_kernel); the mesh chase reads that count as its
 //      round's change flag.
@@ -69,8 +69,9 @@ __global__ void gather_kernel(const int* __restrict__ values,
 
 }  // namespace
 
-// flag: two ints of device scratch, [0] the jump flag, [1] the changed
-// count (read by the wrapper); ptr: n ints of scratch.
+// flag: pb::kGroup + 1 ints of device scratch, the jump passes' flags and
+// then the changed count (read by the wrapper); ptr: n ints of scratch,
+// 16-byte aligned.
 PB_EXPORT int pb_chase(void* values, void* codes, void* out, void* ptr,
                        void* flag, int nx, int ny, int nz, int max_passes,
                        int device, void* stream) {
@@ -79,17 +80,19 @@ PB_EXPORT int pb_chase(void* values, void* codes, void* out, void* ptr,
     const long long n = static_cast<long long>(nx) * ny * nz;
     int* flag_d = static_cast<int*>(flag);
     int* ptr_d = static_cast<int*>(ptr);
-    cudaMemsetAsync(flag_d + 1, 0, sizeof(int), s);
+    unsigned int* count = reinterpret_cast<unsigned int*>(flag_d + pb::kGroup);
+    cudaMemsetAsync(count, 0, sizeof(int), s);
     const int blocks = pb::blocks_for(n, device);
     pointer_kernel<<<blocks, pb::kThreads, 0, s>>>(
         static_cast<const unsigned char*>(codes), ptr_d, nx, ny, nz);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int jumped =
-        pb::jump_to_fixed_point(ptr_d, n, flag_d, max_passes, device, s);
+    int passes;
+    const int jumped = pb::jump_to_fixed_point(ptr_d, n, flag_d, max_passes,
+                                               &passes, device, s);
     if (jumped != 0) return jumped;
     gather_kernel<<<blocks, pb::kThreads, 0, s>>>(
         static_cast<const int*>(values), ptr_d, static_cast<int*>(out), n,
-        reinterpret_cast<unsigned int*>(flag_d + 1));
+        count);
     return static_cast<int>(cudaGetLastError());
 }

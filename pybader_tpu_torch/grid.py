@@ -8,6 +8,7 @@ jax).  Formula parity with the reference pybader implementation:
  - distance weights:  interface.py:243-259
  - voxel lattice/volume: interface.py:261-271
  - gradient transform T_grad: interface.py:286-290
+ - fractional/cartesian conversions: interface.py:307-334
 """
 from __future__ import annotations
 
@@ -79,3 +80,17 @@ def t_grad(lattice: np.ndarray, shape) -> np.ndarray:
     """Transform taking a finite-difference gradient to voxel-index steps."""
     inv_l = np.linalg.inv(voxel_lattice(lattice, shape))
     return np.matmul(inv_l.T, inv_l)
+
+
+def voxel_to_fractional(voxels: np.ndarray, shape, voxel_offset_frac) -> np.ndarray:
+    """Voxel indices -> fractional cell coordinates (ref interface.py:318-324)."""
+    out = np.add(voxels, np.asarray(voxel_offset_frac, dtype=np.float64))
+    return np.divide(out, np.asarray(shape, dtype=np.float64))
+
+
+def fractional_to_cartesian(frac: np.ndarray, lattice: np.ndarray) -> np.ndarray:
+    return np.dot(frac, lattice)
+
+
+def cartesian_to_fractional(cart: np.ndarray, lattice: np.ndarray) -> np.ndarray:
+    return np.dot(cart, np.linalg.inv(lattice))

@@ -11,7 +11,7 @@ With ``Bader.mesh`` set to a mesh of more than one shard
 relabel, sums and surface distance run sharded over it, and the mesh's
 devices decide where.
 
-Not ported yet (ROADMAP Queue 1): file types other than VASP.
+Not ported yet (ROADMAP Queue 1): the gpaw and pymatgen readers.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ from pybader_tpu_torch.utils import dtype_calc
 
 # This package's writer for each file type a reader records, swapped into
 # file_info by Bader.from_dict (a JAX-package dict carries the JAX writer).
-_WRITERS = {"VASP": io.vasp.write}
+_WRITERS = {"VASP": io.vasp.write, "cube": io.cube.write}
 
 
 def _host(grid) -> np.ndarray:
@@ -716,4 +716,13 @@ class Bader:
         self.info['write_function'](
             f"Bader-{self.export_mode[0]}-{num}", self.atoms, self.lattice,
             density, self.info, prefix=self.info['prefix'],
+        )
+
+    def write_density(self):
+        """Write the full density as stored in the density dict."""
+        self._file_info['comment'] = "Full charge density output\n"
+        self._file_info['fortran_format'] = self.fortran_format
+        self.info['write_function'](
+            f"{self.info['filename']}", self.atoms, self.lattice,
+            self._density, self.info, suffix='',
         )

@@ -2,7 +2,7 @@
 
 Same contract as :mod:`pybader_tpu.io`: every module exposes
 ``__extensions__``, ``__args__`` and ``read(filename, **kw) -> (density_dict,
-lattice, atoms, file_info)``.  Only the VASP format is ported so far; cube,
-gpaw and pymatgen are later work (ROADMAP Queue 1).
+lattice, atoms, file_info)``.  VASP and cube are ported; gpaw and pymatgen
+are later work (ROADMAP Queue 1).
 """
-from pybader_tpu_torch.io import vasp  # noqa: F401
+from pybader_tpu_torch.io import cube, vasp  # noqa: F401

@@ -20,7 +20,7 @@ import torch
 
 from pybader_tpu_torch.grid import OFFSETS, SELF_INDEX
 from pybader_tpu_torch.ops import _cuda
-from pybader_tpu_torch.ops.pointer import _MAX_PASSES
+from pybader_tpu_torch.ops.pointer import _JUMP_FLAGS, _MAX_PASSES
 
 
 def chase(values: torch.Tensor, best_k: torch.Tensor):
@@ -68,7 +68,9 @@ def chase_cuda(values, best_k):
     _cuda.check(best_k, torch.uint8, "best_k", values.shape)
     out = torch.empty_like(values)
     ptr = torch.empty_like(values)
-    flag = torch.empty((2,), dtype=torch.int32, device=values.device)
+    # the jump passes' flags, then the changed count
+    flag = torch.empty((_JUMP_FLAGS + 1,), dtype=torch.int32,
+                       device=values.device)
     nx, ny, nz = values.shape
     try:
         _cuda.call("pb_chase", values.data_ptr(), best_k.data_ptr(),
@@ -82,7 +84,7 @@ def chase_cuda(values, best_k):
                 f"-- is the code graph acyclic?") from e
         raise
     _cuda.launches["chase"] += 1
-    return out, int(flag[1])
+    return out, int(flag[_JUMP_FLAGS])
 
 
 def step_code_from_parent(parent: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,10 @@ import torch
 
 from pybader_tpu_torch.ops import _cuda
 
+# The voxels (x, y, z) of one block of edge_check's kernel (csrc/edges.cu
+# kTX, kTY, kTZ).
+CHECK_TILE = (8, 8, 32)
+
 
 def _box_reduce(a: torch.Tensor, combine) -> torch.Tensor:
     """Separable periodic 3x3x3 reduction (self included)."""
@@ -113,18 +117,42 @@ def edge_check_plain(known, labels, is_max):
 
 
 def edge_check_cuda(known, labels, is_max):
-    """Launch ``pb_edge_check`` (csrc/edges.cu)."""
+    """Launch ``pb_edge_check`` (csrc/edges.cu): one pass over tiles of
+    :data:`CHECK_TILE` voxels."""
     _check_grids(labels, is_max)
     _cuda.check(known, torch.int8, "known", labels.shape)
-    scratch = torch.empty(labels.shape, dtype=torch.uint8,
-                          device=labels.device)
     out = torch.empty_like(known)
     nx, ny, nz = labels.shape
     _cuda.call("pb_edge_check", known.data_ptr(), labels.data_ptr(),
-               is_max.data_ptr(), scratch.data_ptr(), out.data_ptr(), nx, ny,
-               nz, labels.device.index or 0, _cuda.stream(labels))
+               is_max.data_ptr(), out.data_ptr(), nx, ny, nz,
+               labels.device.index or 0, _cuda.stream(labels))
     _cuda.launches["edge_check"] += 1
     return out
+
+
+def check_reads(known: torch.Tensor, labels: torch.Tensor):
+    """What ``edge_check`` must read besides ``known``: labels at every
+    voxel within 1 of a -2 (whether it is vacuum) and within 1 of a
+    candidate (its 27-box edge test), is_max at the candidates that are
+    edges.  returns (labels read, is_max read), bool grids; they set the
+    kernel's bound, which its tiles do not."""
+    near = _box_reduce(known == -2, torch.logical_or)
+    cand = near & (labels != -1)
+    return near | _box_reduce(cand, torch.logical_or), cand & _is_edge(labels)
+
+
+def check_tiles_active(known: torch.Tensor) -> torch.Tensor:
+    """Per tile of ``edge_check_cuda``, whether it has a -2 within 2 voxels
+    (periodic) and so reads labels and is_max; the other tiles copy known.
+    A (tiles x, tiles y, tiles z) bool grid."""
+    near = _box_reduce(_box_reduce(known == -2, torch.logical_or),
+                       torch.logical_or)
+    pad = [(-s) % t for s, t in zip(near.shape, CHECK_TILE)]
+    near = torch.nn.functional.pad(near.to(torch.uint8),
+                                   (0, pad[2], 0, pad[1], 0, pad[0]))
+    tx, ty, tz = (s // t for s, t in zip(near.shape, CHECK_TILE))
+    return near.view(tx, CHECK_TILE[0], ty, CHECK_TILE[1], tz,
+                     CHECK_TILE[2]).amax(dim=(1, 3, 5)).bool()
 
 
 def _check_grids(labels, is_max):

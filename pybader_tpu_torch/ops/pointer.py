@@ -6,10 +6,13 @@ contract of :func:`pybader_tpu.ops.scanflood.labels_scanflood` (the
 labels numbered by ascending flat index of their maximum, vacuum -1.
 
 The TPU floods labels with directional plane scans because its gathers are
-slow; on Hopper the roots come from pointer jumping (``csrc/flood.cu``),
-which reaches the same fixed point.
+slow; on Hopper the roots come from pointer jumping (``csrc/flood.cu``: a
+pass over tiles in shared memory, then passes over the whole grid), which
+reaches the same fixed point.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -19,6 +22,9 @@ from pybader_tpu_torch.ops.stencil import parent_from_step_codes
 # More passes than any pointer graph of < 2**31 voxels needs: in-place
 # jumping at least halves every chain per pass.
 _MAX_PASSES = 64
+# Flag words of the jump passes' scratch: csrc/jump.cuh's kGroup, the
+# passes launched between two reads of their flags by the host.
+_JUMP_FLAGS = 2
 
 
 def resolve_roots(parent: torch.Tensor) -> torch.Tensor:
@@ -30,26 +36,38 @@ def resolve_roots(parent: torch.Tensor) -> torch.Tensor:
     return resolve_roots_plain(parent)
 
 
-def resolve_roots_plain(parent: torch.Tensor) -> torch.Tensor:
-    """Synchronous pointer doubling, as the JAX ``resolve_roots``."""
+def resolve_roots_plain(parent: torch.Tensor, stats=None) -> torch.Tensor:
+    """Synchronous pointer doubling, as the JAX ``resolve_roots``.
+    ``stats['passes']``: the doubling passes, the last one unchanged."""
     p = parent.reshape(-1).long()
+    passes = 0
     while True:
         p2 = p[p]
+        passes += 1
         if torch.equal(p2, p):
             break
         p = p2
+    if stats is not None:
+        stats["passes"] = passes
     return p.to(torch.int32).reshape(parent.shape)
 
 
-def resolve_roots_cuda(parent: torch.Tensor) -> torch.Tensor:
-    """Launch ``pb_resolve_roots`` (csrc/flood.cu) on a copy of parent."""
+def resolve_roots_cuda(parent: torch.Tensor, stats=None) -> torch.Tensor:
+    """Launch ``pb_resolve_roots`` (csrc/flood.cu).  A parent that is not
+    3-D is taken as one flat row (1 x 1 x n).  ``stats['passes']``: the
+    global passes after the tile pass."""
     _cuda.check(parent, torch.int32, "parent")
-    root = parent.clone(memory_format=torch.contiguous_format)
-    flag = torch.empty((1,), dtype=torch.int32, device=parent.device)
+    shape = (tuple(parent.shape) if parent.dim() == 3
+             else (1, 1, parent.numel()))
+    root = torch.empty_like(parent, memory_format=torch.contiguous_format)
+    flags = torch.empty((_JUMP_FLAGS,), dtype=torch.int32,
+                        device=parent.device)
+    passes = ctypes.c_int(0)
     try:
-        _cuda.call("pb_resolve_roots", root.data_ptr(), root.numel(),
-                   flag.data_ptr(), _MAX_PASSES, parent.device.index or 0,
-                   _cuda.stream(parent))
+        _cuda.call("pb_resolve_roots", parent.data_ptr(), root.data_ptr(),
+                   *shape, flags.data_ptr(), _MAX_PASSES,
+                   ctypes.addressof(passes),
+                   parent.device.index or 0, _cuda.stream(parent))
     except _cuda.KernelError as e:
         if e.code == -1:
             raise RuntimeError(
@@ -57,6 +75,8 @@ def resolve_roots_cuda(parent: torch.Tensor) -> torch.Tensor:
                 f"-- is the pointer graph acyclic?") from e
         raise
     _cuda.launches["resolve_roots"] += 1
+    if stats is not None:
+        stats["passes"] = passes.value
     return root
 
 

@@ -1,4 +1,4 @@
-"""Host-side utility helpers: dtype policy, text formatting, progress bars.
+"""Host-side utility helpers: dtype policy, text formatting, stdout tools.
 
 A copy of :mod:`pybader_tpu.utils`.  Behavioural parity targets in the
 reference pybader package:
@@ -6,10 +6,13 @@ reference pybader package:
  - fortran_format   (utils.py:40-82)  — including its string-truncation
    behaviour when rounding crosses a power of ten
  - python_format    (utils.py:85-94)
+ - nostdout         (utils.py:97-104)
 """
 from __future__ import annotations
 
 import sys
+from contextlib import contextmanager
+from io import StringIO
 
 import numpy as np
 
@@ -122,6 +125,17 @@ def tqdm_wrap(*args, **kwargs):
     ncols = 80 if ncols >= 80 else None
     return tqdm(*args, ascii=True, ncols=ncols, bar_format=bar_format,
                 file=sys.stdout, **kwargs)
+
+
+@contextmanager
+def nostdout():
+    """Temporarily silence stdout."""
+    saved = sys.stdout
+    sys.stdout = StringIO()
+    try:
+        yield
+    finally:
+        sys.stdout = saved
 
 
 def parse_float_block(text: str, count: int,

@@ -76,6 +76,39 @@ def test_labels_many_basins_match_scanflood(vacuum_q):
                                                     noise=True)) > 64
 
 
+def test_roots_of_a_long_ramp_match_jax():
+    """Chains that cross the grid along x: every voxel's root is on the
+    last plane, as in the tiled kernel's worst case (a chain through
+    every tile)."""
+    nx, ny, nz = 40, 6, 8
+    idx = np.arange(nx * ny * nz, dtype=np.int32).reshape(nx, ny, nz)
+    parent = np.where(idx < (nx - 1) * ny * nz, idx + ny * nz,
+                      idx).astype(np.int32)
+    want = np.asarray(jp.resolve_roots(jnp.asarray(parent)))
+    st = {}
+    got = tp.resolve_roots(torch.from_numpy(parent)).numpy()
+    tp.resolve_roots_plain(torch.from_numpy(parent), st)
+    np.testing.assert_array_equal(got, want)
+    assert (got // (ny * nz) == nx - 1).all()
+    assert st["passes"] == 7  # ceil(log2(39)) doublings and a check
+
+
+@pytest.mark.parametrize("shape", [(30001,), (101, 97)])
+def test_roots_of_a_flat_parent_match_jax(shape):
+    """A parent that is not 3-D (the kernel takes it as one flat row),
+    of a length no tile divides: steps of 0-7 voxels forward."""
+    rng = np.random.default_rng(3)
+    n = int(np.prod(shape))
+    step = rng.integers(0, 8, n)
+    step[rng.random(n) < 1 / 64] = 0
+    parent = np.minimum(np.arange(n) + step, n - 1).astype(np.int32)
+    parent = parent.reshape(shape)
+    want = np.asarray(jp.resolve_roots(jnp.asarray(parent)))
+    got = tp.resolve_roots(torch.from_numpy(parent)).numpy()
+    assert got.shape == shape
+    np.testing.assert_array_equal(got, want)
+
+
 def test_root_kernel_wrapper_rejects_cpu_tensor():
     bk, _ = codes_for(0)
     parent = torch.from_numpy(

@@ -3,7 +3,7 @@
 Run from the repository root on a machine with one CUDA GPU:
 
     python3 tools/profile_ongrid.py [--size 384] [--warm 3] [--default]
-                                    [--mesh N] [--trace PATH]
+                                    [--mesh N] [--trace PATH] [--root DIR]
 
 It builds chip_smoke's blob density at ``--size``^3, runs
 ``Bader(method='ongrid')()`` (with ``--default``: ``Bader()()``, the default
@@ -13,8 +13,11 @@ then once under
 ``torch.profiler``, and prints the wall time of each run and one JSON line
 with the device time of the profiled run by kind: host<->device copies,
 each hand-written kernel of ``pybader_tpu_torch/csrc``, every other kernel,
-and the share of the wall time in which the device was busy.  ``--trace``
-also writes the chrome trace.
+the share of the wall time in which the device was busy, and the sums of
+edge_check's and resolve_roots' kernels over their launches.  ``--trace``
+also writes the chrome trace.  ``--root`` profiles the port of another
+checkout (unpacked with ``git archive``), with this script's kernel names,
+which include those of earlier designs.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if "--root" in sys.argv:
+    ROOT = os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
@@ -34,14 +39,20 @@ import chip_smoke  # noqa: E402
 from pybader_tpu_torch.parallel import make_mesh  # noqa: E402
 
 # __global__ functions of csrc/*.cu, matched in the demangled kernel names
+# (check_flags/check_near: the edge_check design before edge_check_kernel)
 HAND_WRITTEN = ("ongrid_step_codes_kernel", "jump_kernel", "min_pair_kernel",
                 "remap_kernel", "charge_volume_kernel",
                 "surface_min_d2_kernel", "fill_int_kernel",
                 "zero_sums_kernel", "fill_u64_kernel", "find_flags_kernel",
                 "find_known_kernel", "check_flags_kernel",
-                "check_near_kernel", "rows_kernel", "walk_kernel",
-                "pointer_kernel", "gather_kernel", "walk_shard_kernel",
-                "stop_bitmap_kernel")
+                "check_near_kernel", "edge_check_kernel", "tile_roots_kernel",
+                "rows_kernel", "walk_kernel", "pointer_kernel",
+                "gather_kernel", "walk_shard_kernel", "stop_bitmap_kernel")
+# kernels of one op, summed over its launches; on one device jump_kernel
+# runs only in the roots (the chase runs on a mesh)
+SUMS = {"edge_check": ("check_flags_kernel", "check_near_kernel",
+                       "edge_check_kernel"),
+        "resolve_roots": ("jump_kernel", "tile_roots_kernel")}
 ONGRID = {"method": "ongrid", "refine_method": "ongrid"}
 
 
@@ -95,6 +106,8 @@ def breakdown(prof, wall_s: float) -> dict:
                                if k in HAND_WRITTEN) / 1e3,
         "kinds": {k: {"count": n, "ms": us / 1e3}
                   for k, (n, us) in sorted(rows.items())},
+        "sums_ms": {op: sum(rows.get(k, (0, 0.0))[1] for k in ks) / 1e3
+                    for op, ks in SUMS.items()},
     }
 
 
@@ -107,6 +120,8 @@ def main(argv=None):
     ap.add_argument("--mesh", type=int, default=0,
                     help="run on a mesh of this many shards of the card")
     ap.add_argument("--trace", help="write the chrome trace to this path")
+    ap.add_argument("--root", help="the checkout whose port is profiled "
+                    "(read at import)")
     args = ap.parse_args(argv)
     config = {} if args.default else ONGRID
     if not torch.cuda.is_available():
