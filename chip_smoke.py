@@ -12,8 +12,12 @@ Phases (one line of output each, or a few):
   4. kernel: each of the six ongrid-path kernels against its plain PyTorch
      version on the card, on the inputs the ongrid path gives it at 384^3;
      remap_labels also at a ragged length and at storage offsets 1 and 3;
-     resolve_roots also on a ramp along x (chains across every tile) and a
-     flat parent of odd length, with its pass counts
+     charge_volume also at a ragged length, on views at storage offsets,
+     on labels outside [0, K), on labels spread over more than 512 slots
+     (global atomics) and on the atom labels; edge_find on the surface
+     stage's input (atom labels, maxima from the density); resolve_roots
+     also on a ramp along x (chains across every tile) and a flat parent
+     of odd length, with its pass counts
   5. neargrid: the four refinement kernels at 384^3 on the same field:
      edge_find on the ongrid labels, neargrid_rows for both gradient tests,
      neargrid_walk on iteration 1's full edge set (stop at known == 2, the
@@ -22,8 +26,10 @@ Phases (one line of output each, or a few):
      one-thread-a-lane launch would keep busy) and edge_check on the known
      grid after that iteration (dense), then on 0.6 M of its edges sampled
      with a seed (sparse), the fixture's ragged 24x28x32 grid, a 37x29x45
-     grid, a grid with an axis of 2 and the field with 25 % vacuum, with
-     the share of tiles that skip the labels
+     grid, grids with an axis of 2 and the field with 25 % vacuum, with
+     the share of tiles that skip the labels; edge_find on refinement's
+     input and on the same ragged, axis-2 and vacuum grids, with the share
+     of tiles that skip is_max
   6. qrows: the four kernels of the quantised-row walks at 384^3 on the
      same field: nginit_codes on the ongrid codes, neargrid_qrows (refinement
      gradient), neargrid_walk_q unscreened and screened on iteration 1's
@@ -38,7 +44,8 @@ Phases (one line of output each, or a few):
      resolve_roots
   8. noise: a 384^3 white-noise field (about 2 M basins): the five
      partition and sum kernels against their plain versions at that label
-     count, then the main-path partition and sums against the plain chain
+     count and edge_find on its labels (no tile skipped), then the
+     main-path partition and sums against the plain chain
   9. cli: the ``bader`` CLI on tests/fixtures/CHGCAR_fixture, with -m
      ongrid (charge conserved) and with the default profile (per-atom
      charges, volumes and maxima against the fixture's golden file)
@@ -344,6 +351,7 @@ def partition_kernels(rho, shape, res, phase="kernel"):
             library=lambda: torch.bincount(
                 labels.reshape(-1), weights=rho.reshape(-1),
                 minlength=n_max))
+    charge_volume_cases(rho, labels, n_max, phase)
     _, ny, nz = shape
     mf = max_pos[order].long()
     maxima = torch.stack([mf // (ny * nz), (mf // nz) % ny, mf % nz], 1)
@@ -406,6 +414,72 @@ def remap_cases(labels, table, k, phase):
             f"{name} ({lab.numel()} voxels)" for name, lab in cases.items()))
 
 
+def charge_volume_cases(rho, labels, k, phase):
+    """charge_volume against its plain version (close(1e-9)) where its
+    scalar head and tail, its scalar density loads and its label filter
+    run: a length that is not a multiple of 4, contiguous views at storage
+    offsets (labels 1, density 1: 16-byte density vectors after the head;
+    labels 3, density 2: scalar density loads), labels below -1 and at or
+    past k, and labels spread over more than 512 slots (global atomics);
+    with the time of each."""
+    from pybader_tpu_torch.ops import reductions
+
+    r, lab = rho.reshape(-1), labels.reshape(-1)
+    cases = {"ragged": (r[:-3], lab[:-3], k),
+             "offsets 1 and 1": (r[1:], lab[1:], k),
+             "offsets 3 and 2": (r[2:-1], lab[3:], k),
+             "labels -2 .. k - 3": (r, lab - 2, max(k - 4, 1)),
+             f"labels x 10 of {10 * k}": (r, lab * 10, 10 * k)}
+    for name, (d, ll, kk) in cases.items():
+        close(1e-9)(reductions.charge_volume_cuda(d, ll, kk),
+                    reductions.charge_volume_plain(d, ll, kk))
+        ms = time_ms(lambda: reductions.charge_volume_cuda(d, ll, kk))
+        say(phase, f"charge_volume on {name} ({ll.numel()} voxels, "
+            f"{kk} labels): equal to its plain version; {ms:.3f} ms")
+
+
+def find_cost(labels):
+    """edge_find's bound from this run's data: labels read and known
+    written everywhere (5 bytes a voxel), is_max where the function reads
+    it (``edges.find_reads``)."""
+    from pybader_tpu_torch.ops import edges
+
+    return bound(5 * labels.numel() + int(edges.find_reads(labels).sum()))
+
+
+def find_case(name, labels, is_max, phase):
+    """edge_find against its plain version on one input; its time, its
+    bound and the share of tiles that skipped is_max."""
+    from pybader_tpu_torch.ops import edges
+
+    equal(edges.edge_find_cuda(labels, is_max),
+          edges.edge_find_plain(labels, is_max))
+    active = edges.find_tiles_active(labels)
+    ms = time_ms(lambda: edges.edge_find_cuda(labels, is_max))
+    say(phase, f"edge_find on {name} {tuple(labels.shape)}: equal to its "
+        f"plain version; {int((~active).sum())} of {active.numel()} tiles "
+        f"skipped ({float((~active).float().mean()):.4f}); {ms:.3f} ms, "
+        f"bound {find_cost(labels)['bound_ms']:.3f} ms")
+
+
+def atom_labels_of(labels, maxima, atoms_cart):
+    """Basin labels -> the labels of their atoms, as the default call's
+    surface stage has them: each maximum (voxel indices, label order) goes
+    to its nearest atom under the periodic lattice."""
+    from pybader_tpu_torch.ops import atoms as atoms_ops
+    from pybader_tpu_torch.ops import reductions
+
+    dev = labels.device
+    lat = torch.as_tensor(LATTICE, device=dev)
+    maxima_cart = (torch.as_tensor(maxima, device=dev).double()
+                   / torch.as_tensor(labels.shape, dtype=torch.float64,
+                                     device=dev)) @ lat
+    atom_idx, _ = atoms_ops.assign_to_atoms(
+        maxima_cart, torch.as_tensor(atoms_cart, device=dev), lat)
+    return reductions.remap_labels_plain(labels, atom_idx.to(torch.int32),
+                                         len(maxima))
+
+
 def kernel_phase(rho, atoms_cart, shape):
     """All six kernels against their plain versions on the blob field.
     Returns the per-kernel results and the plain pipeline's labels."""
@@ -417,14 +491,17 @@ def kernel_phase(rho, atoms_cart, shape):
     roots_cases(shape, "kernel")
     lat = torch.as_tensor(LATTICE, device=rho.device)
     atoms_t = torch.as_tensor(atoms_cart, device=rho.device)
-    maxima_cart = (maxima.double() / torch.as_tensor(
-        shape, dtype=torch.float64, device=rho.device)) @ lat
-    atom_idx, _ = atoms_ops.assign_to_atoms(maxima_cart, atoms_t, lat)
-    atom_labels = reductions.remap_labels_plain(
-        labels, atom_idx.to(torch.int32), n_max)
-    edge_mask = edges.edge_find_plain(
-        atom_labels, edges.local_max(rho, atom_labels)) == -2
+    atom_labels = atom_labels_of(labels, maxima, atoms_cart)
     n_atoms = atoms_t.shape[0]
+    atom_max = edges.local_max(rho, atom_labels)
+    edge_mask = edges.edge_find_plain(atom_labels, atom_max) == -2
+    find_case("the surface stage's input", atom_labels, atom_max, "kernel")
+    close(1e-9)(reductions.charge_volume_cuda(rho, atom_labels, n_atoms),
+                reductions.charge_volume_plain(rho, atom_labels, n_atoms))
+    ms = time_ms(lambda: reductions.charge_volume_cuda(rho, atom_labels,
+                                                       n_atoms))
+    say("kernel", f"charge_volume on the atom labels ({n_atoms}): equal to "
+        f"its plain version; {ms:.3f} ms")
     n_edge = int(edge_mask.sum())
     # per edge voxel and image: 3 subtractions, 3 products, 2 sums
     compare("surface_min_d2", res,
@@ -464,7 +541,8 @@ def neargrid_phase(rho, shape, codes, labels, res):
     known = compare(
         "edge_find", res, lambda: edges.edge_find_cuda(labels, is_max),
         lambda: edges.edge_find_plain(labels, is_max), equal,
-        "neargrid", bound(6 * n))
+        "neargrid", find_cost(labels))
+    find_case("refinement's input", labels, is_max, "neargrid")
     for strict in (False, True):
         # 6 compares, 3 differences, 3 halvings, 9 products, 9 sums,
         # 3 abs, 2 max, 3 divisions: 38 f64 operations
@@ -565,41 +643,51 @@ def perturbed(known, labels, gen):
     return kn, lab.to(torch.int32)
 
 
-def edge_check_inputs(rho, is_max, gen):
-    """Inputs (name, known, labels, is_max) where edge_check's tiles are
-    ragged or its halo wraps: the fixture's 24x28x32 grid, a 37x29x45 noise
-    grid (no 16-byte rows), a 2x30x40 grid (the halo wraps onto itself),
-    and the blob field with 25 % of it vacuum; each an edge_find grid after
-    :func:`perturbed`."""
+def edge_find_inputs(rho, is_max, gen):
+    """Inputs (name, labels, is_max) where the edge kernels' tiles are
+    ragged or their halo wraps: the fixture's 24x28x32 grid, a 37x29x45
+    noise grid (no 16-byte rows), 2x30x40 and 30x2x40 grids (the halo wraps
+    onto itself), and the blob field with 25 % of it vacuum; each with its
+    ongrid labels and maxima."""
     from pybader_tpu_torch import grid, pipeline
     from pybader_tpu_torch.io import vasp
-    from pybader_tpu_torch.ops import edges, stencil
+    from pybader_tpu_torch.ops import stencil
 
     density, lattice, _, _ = vasp.read(FIXTURE)
     fields = [("the fixture", torch.as_tensor(density["charge"],
                                               device=rho.device), lattice)]
-    for shp in ((37, 29, 45), (2, 30, 40)):
+    for shp in ((37, 29, 45), (2, 30, 40), (30, 2, 40)):
         fields.append(("noise", torch.rand(shp, dtype=torch.float64,
                                             generator=gen,
                                             device=rho.device), LATTICE))
     for name, field, lat in fields:
         w = tuple(grid.distance_weights(lat, field.shape))
         lab, _ = pipeline.partition_ongrid(field, None, w)
-        mx = stencil.ongrid_step_codes_cuda(field, w) == 13
-        kn, lab = perturbed(edges.edge_find_cuda(lab, mx), lab, gen)
-        yield name, kn, lab, mx
+        yield name, lab, stencil.ongrid_step_codes_cuda(field, w) == 13
     vac = rho <= rho.reshape(-1).kthvalue(rho.numel() // 4).values
     w = tuple(grid.distance_weights(LATTICE, rho.shape))
     lab, _ = pipeline.partition_ongrid(rho, vac, w)
-    mx = is_max & ~vac
-    kn, lab = perturbed(edges.edge_find_cuda(lab, mx), lab, gen)
-    yield "25 % vacuum", kn, lab, mx
+    yield "25 % vacuum", lab, is_max & ~vac
+
+
+def edge_check_inputs(rho, is_max, gen):
+    """Inputs (name, known, labels, is_max) of :func:`edge_find_inputs`,
+    each an edge_find grid after :func:`perturbed`."""
+    from pybader_tpu_torch.ops import edges
+
+    for name, lab, mx in edge_find_inputs(rho, is_max, gen):
+        kn, lab = perturbed(edges.edge_find_cuda(lab, mx), lab, gen)
+        yield name, kn, lab, mx
 
 
 def edge_check_cases(rho, is_max, gen):
-    """edge_check against its plain version on :func:`edge_check_inputs`."""
+    """edge_check against its plain version on :func:`edge_check_inputs`,
+    then edge_find on :func:`edge_find_inputs` (seed 7)."""
     for case in edge_check_inputs(rho, is_max, gen):
         check_case(*case)
+    gen = torch.Generator(device=rho.device).manual_seed(7)
+    for case in edge_find_inputs(rho, is_max, gen):
+        find_case(*case, "neargrid")
 
 
 def state_equal(a, b):
@@ -713,8 +801,10 @@ def noise_phase(shape, device="cuda"):
     gen = torch.Generator(device=device).manual_seed(2)
     rho = torch.rand(shape, dtype=torch.float64, device=device,
                      generator=gen)
-    labels_p, maxima_p, n_max, _ = partition_kernels(rho, shape, {},
-                                                      "noise")
+    labels_p, maxima_p, n_max, codes = partition_kernels(rho, shape, {},
+                                                          "noise")
+    find_case("the noise field", labels_p, codes == 13, "noise")
+    del codes
     vox = grid.voxel_volume(LATTICE, shape)
     _cuda.launches.clear()
     labels, maxima = pipeline.partition_ongrid(

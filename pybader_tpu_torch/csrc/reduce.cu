@@ -3,9 +3,9 @@
 // Each kernel here replaces one Pallas kernel of
 // pybader_tpu/ops/pallas_reduce.py.  The TPU kernels loop over every label
 // inside each VMEM tile (no scatters on the TPU), which caps them at 256
-// labels; on Hopper a voxel goes straight to its label's slot with an
-// atomic, so these take any label count.  All four are grid-stride loops,
-// bound by device memory: each reads the grid once (remap also writes it).
+// labels; on Hopper a voxel (or a run of voxels of one label) goes to its
+// label's slot, so these take any label count.  All four are bound by
+// device memory: each reads the grid once (remap also writes it).
 
 #include <climits>
 
@@ -132,67 +132,309 @@ __global__ void remap_kernel(const int* __restrict__ labels,
 // Replaces pallas_reduce.py:charge_volume (_sums_kernel): per label, the
 // f64 density sum and the exact voxel count (labels < 0 or >= k skipped).
 // The TPU kernel sums split hi/lo f32 halves; this sums in f64.
-// Bound: 12 bytes read a voxel.  A block walks tiles of kItems * 256
-// voxels with coalesced loads; a thread's successive voxels are 256 apart,
-// almost always in the same basin, so it keeps a running (label, sum,
-// count) in registers and issues one atomic per run, not per voxel.  Runs
-// land in per-block shared-memory bins when k fits (one global atomic per
-// bin per block at the end), else straight in the global slots.
-constexpr int kItems = 16;
+// Bound: 12 bytes read a voxel.  Each warp sums a contiguous span of the
+// grid in chunks of 128 voxels: a lane reads 4 contiguous voxels as one
+// 16-byte label vector and two 16-byte density vectors, kSumUnroll chunks
+// of loads in flight before it adds any.  A run of one label then lasts a
+// basin's extent along z, and the warp carries it from chunk to chunk:
+// while all 128 voxels of a chunk carry the run's label (__all_sync) each
+// lane adds its 4 to its own partial and nothing else happens.  A chunk
+// where the label changes takes the slow path: each lane splits its 4
+// voxels into runs, a segmented scan with shuffles sums the runs that
+// cross lanes, and each finished run is added once, by one lane.
+// Small k (the main path: 62 basins, 60 atoms): each warp owns a row of
+// bins in shared memory (f64 sums, 32-bit counts), written without
+// atomics (lanes of one label take turns, in lane order); each block
+// writes its rows' sums to a scratch row and charge_volume_blocks_kernel
+// sums the rows in block order, so the sums are the same from run to run
+// (global atomics on 62 slots serialise in L2: 4x slower, PERF.md).
+// Large k (a white-noise field: ~2.1 M labels): runs go straight to the
+// global slots with atomics.  Two chunks in flight: more cost registers
+// and resident warps, and were slower.  A scalar head aligns the labels to 16 bytes
+// and a scalar tail ends them; a density whose phase differs from the
+// labels' is read as scalars.
+constexpr int kSumWarps = 8;
+constexpr int kSumThreads = kSumWarps * 32;
+constexpr int kSumUnroll = 2;     // chunks of 128 voxels in flight a warp
+constexpr int kPrivateK = 512;    // 8 warp rows of 12-byte bins: 48 KB
 
-template <bool kShared>
-__global__ void charge_volume_kernel(const double* __restrict__ rho,
-                                     const int* __restrict__ labels,
-                                     double* __restrict__ charge,
-                                     unsigned long long* __restrict__ count,
-                                     long long n, int k) {
-    extern __shared__ unsigned char smem[];
-    double* sum_bins = charge;
-    unsigned long long* cnt_bins = count;
-    if (kShared) {
-        sum_bins = reinterpret_cast<double*>(smem);
-        cnt_bins = reinterpret_cast<unsigned long long*>(sum_bins + k);
-        for (int b = threadIdx.x; b < k; b += blockDim.x) {
-            sum_bins[b] = 0.0;
-            cnt_bins[b] = 0ull;
+// Where finished runs go.  add() is warp-collective: every lane calls it,
+// with want set on the lanes that hold a run (label l, sum s, count c).
+template <bool kPrivate>
+struct Bins;
+
+template <>
+struct Bins<true> {  // this warp's row in shared memory
+    double* sum;
+    unsigned* cnt;
+    int k;
+    __device__ __forceinline__ void add(bool want, int l, double s,
+                                        unsigned c) const {
+        const int lane = threadIdx.x & 31;
+        want = want && static_cast<unsigned>(l) < static_cast<unsigned>(k);
+        unsigned pend = __ballot_sync(kFull, want);
+        while (pend) {
+            // the lowest pending lane of each label writes, then the next
+            const bool mine = (pend >> lane) & 1u;
+            const unsigned grp = __match_any_sync(kFull, mine ? l : -1 - lane);
+            const bool lead = mine && __ffs(grp) - 1 == lane;
+            if (lead) {
+                sum[l] += s;
+                cnt[l] += c;
+            }
+            __syncwarp();
+            pend &= ~__ballot_sync(kFull, lead);
+        }
+    }
+};
+
+template <>
+struct Bins<false> {  // the global slots
+    double* sum;
+    unsigned long long* cnt;
+    int k;
+    __device__ __forceinline__ void add(bool want, int l, double s,
+                                        unsigned c) const {
+        if (want && static_cast<unsigned>(l) < static_cast<unsigned>(k)) {
+            atomicAdd(&sum[l], s);
+            atomicAdd(&cnt[l], static_cast<unsigned long long>(c));
+        }
+    }
+};
+
+// One chunk of 128 voxels (this lane's 4: labels lv, densities r) into
+// the warp's run (label cur, count n, sum spread over the lanes' acc).
+template <class B>
+__device__ __forceinline__ void sum_chunk(const int4 lv, const double (&r)[4],
+                                          int& cur, double& acc,
+                                          unsigned& n, const B& bins) {
+    const int lane = threadIdx.x & 31;
+    const int l[4] = {lv.x, lv.y, lv.z, lv.w};
+    if (__all_sync(kFull, l[0] == cur && l[1] == cur && l[2] == cur &&
+                              l[3] == cur)) {
+        acc += (r[0] + r[1]) + (r[2] + r[3]);
+        n += 128;
+        return;
+    }
+    // this lane's runs: the tail (its last), the head (its first, if it
+    // holds more than one) and up to two between them
+    int tl = l[0];
+    double ts = r[0];
+    unsigned tc = 1;
+    bool split = false;
+    int hl = 0;
+    double hs = 0.0;
+    unsigned hc = 0;
+    bool iw[2] = {false, false};
+    int il[2] = {0, 0};
+    double is[2] = {0.0, 0.0};
+    unsigned ic[2] = {0, 0};
+#pragma unroll
+    for (int j = 1; j < 4; ++j) {
+        if (l[j] != tl) {
+            if (!split) {
+                hl = tl;
+                hs = ts;
+                hc = tc;
+                split = true;
+            } else {
+                iw[j - 2] = true;
+                il[j - 2] = tl;
+                is[j - 2] = ts;
+                ic[j - 2] = tc;
+            }
+            tl = l[j];
+            ts = r[j];
+            tc = 1;
+        } else {
+            ts += r[j];
+            ++tc;
+        }
+    }
+    // the run before this lane's first voxel: the previous lane's tail,
+    // for lane 0 the warp's run
+    int prev = __shfl_up_sync(kFull, tl, 1);
+    if (lane == 0) prev = cur;
+    // a head that continues the previous lane's tail is added to it
+    const bool join = split && hl == prev;
+    const double down_s = __shfl_down_sync(kFull, join ? hs : 0.0, 1);
+    const unsigned down_c = __shfl_down_sync(kFull, join ? hc : 0u, 1);
+    if (lane < 31) {
+        ts += down_s;
+        tc += down_c;
+    }
+    double cs = acc;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) cs += __shfl_down_sync(kFull, cs, o);
+    // lane 0: the warp's run goes on in this lane's tail, or ends here
+    // (with this lane's head, if that continues it)
+    const bool into_tail = lane == 0 && !split && tl == cur;
+    if (into_tail) {
+        ts = cs + ts;
+        tc = n + tc;
+    }
+    const bool head_to_run = lane == 0 && join;
+    bins.add(lane == 0 && !into_tail && n + (head_to_run ? hc : 0u) > 0,
+             cur, head_to_run ? cs + hs : cs, n + (head_to_run ? hc : 0u));
+    bins.add(split && !join, hl, hs, hc);
+    bins.add(iw[0], il[0], is[0], ic[0]);
+    bins.add(iw[1], il[1], is[1], ic[1]);
+    // segmented inclusive scan of the tails; a segment starts where a
+    // lane's tail starts inside it or its label differs from the last
+    const bool start = split || tl != prev;
+    bool f = start;
+    double ss = ts;
+    unsigned sc = tc;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const double us = __shfl_up_sync(kFull, ss, d);
+        const unsigned uc = __shfl_up_sync(kFull, sc, d);
+        const bool uf = __shfl_up_sync(kFull, static_cast<int>(f), d) != 0;
+        if (lane >= d) {
+            if (!f) {
+                ss = us + ss;
+                sc = uc + sc;
+            }
+            f = f || uf;
+        }
+    }
+    // a segment that ends before lane 31 is a finished run; lane 31's
+    // goes on as the warp's run
+    const bool next = __shfl_down_sync(kFull, static_cast<int>(start), 1);
+    bins.add(lane < 31 && next, tl, ss, sc);
+    cur = __shfl_sync(kFull, tl, 31);
+    n = __shfl_sync(kFull, sc, 31);
+    acc = lane == 31 ? ss : 0.0;
+}
+
+// The warp's spans: chunks [c0, c1) of 32 label vectors, vectors from
+// labels + head (16-byte aligned); vectors at or past nvec read as label
+// -1 (skipped).
+template <bool kPrivate, bool kRhoVec>
+__global__ void __launch_bounds__(kSumThreads)
+charge_volume_kernel(const double* __restrict__ rho,
+                     const int* __restrict__ labels,
+                     double* __restrict__ charge,
+                     unsigned long long* __restrict__ count,
+                     double* __restrict__ part_sum,
+                     unsigned* __restrict__ part_cnt, long long n, int k,
+                     int head) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    Bins<kPrivate> bins;
+    bins.k = k;
+    if constexpr (kPrivate) {
+        double* sums = reinterpret_cast<double*>(smem);
+        unsigned* cnts = reinterpret_cast<unsigned*>(sums + kSumWarps * k);
+        for (int b = threadIdx.x; b < kSumWarps * k; b += kSumThreads) {
+            sums[b] = 0.0;
+            cnts[b] = 0u;
         }
         __syncthreads();
+        bins.sum = sums + warp * k;
+        bins.cnt = cnts + warp * k;
+    } else {
+        bins.sum = charge;
+        bins.cnt = count;
     }
-    const long long tile = static_cast<long long>(blockDim.x) * kItems;
+    const long long nvec = (n - head) >> 2;
+    // the scalar head [0, head) and tail [head + 4 nvec, n), in block 0's
+    // first warp, one voxel at a time
+    if (blockIdx.x == 0 && warp == 0) {
+        for (int j = 0; j < 8; ++j) {
+            const long long i = j < head ? j : head + 4 * nvec + (j - head);
+            const bool want = lane == 0 && i < n;
+            bins.add(want, want ? labels[i] : -1, want ? rho[i] : 0.0, 1u);
+        }
+    }
+    const long long chunks = (nvec + 31) >> 5;
+    const long long warps = static_cast<long long>(gridDim.x) * kSumWarps;
+    const long long per_warp = (chunks + warps - 1) / warps;
+    const long long c0 = (static_cast<long long>(blockIdx.x) * kSumWarps +
+                          warp) * per_warp;
+    const long long c1 = c0 + per_warp < chunks ? c0 + per_warp : chunks;
+    const int4* lv = reinterpret_cast<const int4*>(labels + head);
+    const double* rh = rho + head;
     int cur = -1;
     double acc = 0.0;
-    unsigned long long cnt = 0ull;
-    for (long long t0 = blockIdx.x * tile; t0 < n;
-         t0 += static_cast<long long>(gridDim.x) * tile) {
-        for (int j = 0; j < kItems; ++j) {
-            const long long i = t0 + static_cast<long long>(j) * blockDim.x +
-                                threadIdx.x;
-            if (i >= n) break;
-            const int l = labels[i];
-            if (l != cur) {
-                if (cur >= 0 && cur < k) {
-                    atomicAdd(&sum_bins[cur], acc);
-                    atomicAdd(&cnt_bins[cur], cnt);
+    unsigned run_n = 0u;
+    for (long long c = c0; c < c1; c += kSumUnroll) {
+        int4 v[kSumUnroll];
+        double r[kSumUnroll][4];
+#pragma unroll
+        for (int u = 0; u < kSumUnroll; ++u) {
+            const long long i = (c + u) * 32 + lane;
+            if (c + u < c1 && i < nvec) {
+                v[u] = __ldcs(lv + i);
+                if constexpr (kRhoVec) {
+                    const double2 a = __ldcs(
+                        reinterpret_cast<const double2*>(rh) + 2 * i);
+                    const double2 b = __ldcs(
+                        reinterpret_cast<const double2*>(rh) + 2 * i + 1);
+                    r[u][0] = a.x;
+                    r[u][1] = a.y;
+                    r[u][2] = b.x;
+                    r[u][3] = b.y;
+                } else {
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) r[u][j] = __ldcs(rh + 4 * i + j);
                 }
-                cur = l;
-                acc = 0.0;
-                cnt = 0ull;
+            } else {
+                v[u] = make_int4(-1, -1, -1, -1);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) r[u][j] = 0.0;
             }
-            acc += rho[i];
-            cnt += 1ull;
+        }
+#pragma unroll
+        for (int u = 0; u < kSumUnroll; ++u)
+            sum_chunk(v[u], r[u], cur, acc, run_n, bins);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(kFull, acc, o);
+    bins.add(lane == 0 && run_n > 0, cur, acc, run_n);
+    if constexpr (kPrivate) {
+        __syncthreads();
+        const double* sums = reinterpret_cast<const double*>(smem);
+        const unsigned* cnts =
+            reinterpret_cast<const unsigned*>(sums + kSumWarps * k);
+        for (int b = threadIdx.x; b < k; b += kSumThreads) {
+            double s = 0.0;
+            unsigned c = 0u;
+#pragma unroll
+            for (int w = 0; w < kSumWarps; ++w) {
+                s += sums[w * k + b];
+                c += cnts[w * k + b];
+            }
+            part_sum[static_cast<long long>(blockIdx.x) * k + b] = s;
+            part_cnt[static_cast<long long>(blockIdx.x) * k + b] = c;
         }
     }
-    if (cur >= 0 && cur < k) {
-        atomicAdd(&sum_bins[cur], acc);
-        atomicAdd(&cnt_bins[cur], cnt);
-    }
-    if (kShared) {
-        __syncthreads();
-        for (int b = threadIdx.x; b < k; b += blockDim.x) {
-            if (cnt_bins[b]) {
-                atomicAdd(&charge[b], sum_bins[b]);
-                atomicAdd(&count[b], cnt_bins[b]);
-            }
+}
+
+// Small k: per label (one warp each), the blocks' partial rows summed in
+// block order (lanes stride the blocks, then a fixed shuffle tree).
+__global__ void charge_volume_blocks_kernel(
+    const double* __restrict__ part_sum, const unsigned* __restrict__ part_cnt,
+    int blocks, int k, double* __restrict__ charge,
+    unsigned long long* __restrict__ count) {
+    const int lane = threadIdx.x & 31;
+    const int warps = gridDim.x * (blockDim.x >> 5);
+    for (int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); b < k;
+         b += warps) {
+        double s = 0.0;
+        unsigned long long c = 0ull;
+        for (int i = lane; i < blocks; i += 32) {
+            s += part_sum[static_cast<long long>(i) * k + b];
+            c += part_cnt[static_cast<long long>(i) * k + b];
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            s += __shfl_xor_sync(kFull, s, o);
+            c += __shfl_xor_sync(kFull, c, o);
+        }
+        if (lane == 0) {
+            charge[b] = s;
+            count[b] = c;
         }
     }
 }
@@ -205,6 +447,31 @@ __global__ void zero_sums_kernel(double* __restrict__ charge,
         charge[i] = 0.0;
         count[i] = 0ull;
     }
+}
+
+// The launch of charge_volume_kernel for (n, k) on a device: its grid (a
+// warp gets kSumUnroll chunks or more; no more blocks than fit on the card
+// at once), its dynamic shared memory and its scratch bytes (small k).
+struct SumsLaunch {
+    int blocks;
+    size_t smem;
+    long long scratch;
+};
+
+inline SumsLaunch sums_launch(long long n, int k, int device) {
+    const bool priv = k <= kPrivateK;
+    const size_t smem = priv ? static_cast<size_t>(kSumWarps) * k * 12 : 0;
+    const int cap =
+        priv ? pb::resident_blocks(charge_volume_kernel<true, true>,
+                                   kSumThreads, smem, device)
+             : pb::resident_blocks(charge_volume_kernel<false, true>,
+                                   kSumThreads, 0, device);
+    const long long chunks = (n / 4 + 31) / 32;
+    const long long per_block = static_cast<long long>(kSumWarps) * kSumUnroll;
+    long long want = (chunks + per_block - 1) / per_block;
+    if (want > cap) want = cap;
+    const int blocks = static_cast<int>(want < 1 ? 1 : want);
+    return {blocks, smem, priv ? static_cast<long long>(blocks) * k * 12 : 0};
 }
 
 // ------------------------------------------------------ surface distance
@@ -343,27 +610,59 @@ PB_EXPORT int pb_remap(void* labels, void* table, void* out, long long n,
     return static_cast<int>(cudaGetLastError());
 }
 
-PB_EXPORT int pb_charge_volume(void* rho, void* labels, void* charge,
-                               void* count, long long n, int k, int device,
-                               void* stream) {
+// The scratch bytes pb_charge_volume needs for (n, k), into the host
+// long long *out (0 for large k).
+PB_EXPORT int pb_charge_volume_scratch(long long n, int k, int device,
+                                       void* out) {
     cudaSetDevice(device);
+    *static_cast<long long*>(out) = k > 0 ? sums_launch(n, k, device).scratch
+                                          : 0;
+    return static_cast<int>(cudaGetLastError());
+}
+
+PB_EXPORT int pb_charge_volume(void* rho, void* labels, void* charge,
+                               void* count, void* scratch, long long n, int k,
+                               int device, void* stream) {
+    cudaSetDevice(device);
+    if (k <= 0) return 0;
     cudaStream_t s = pb::as_stream(stream);
+    const auto addr = [](const void* p) {
+        return reinterpret_cast<unsigned long long>(p);
+    };
+    long long head = static_cast<long long>((16 - (addr(labels) & 15)) & 15) / 4;
+    if (head > n) head = n;
+    const bool rho_vec = (addr(rho) + 8 * head) % 16 == 0;
+    const SumsLaunch g = sums_launch(n, k, device);
+    const double* r = static_cast<const double*>(rho);
+    const int* l = static_cast<const int*>(labels);
     double* c = static_cast<double*>(charge);
     unsigned long long* v = static_cast<unsigned long long*>(count);
-    zero_sums_kernel<<<small_blocks(k), pb::kThreads, 0, s>>>(c, v, k);
-    const long long per_block = static_cast<long long>(pb::kThreads) * kItems;
-    long long want = (n + per_block - 1) / per_block;
-    const long long cap = pb::blocks_for(n, device);
-    const int blocks = static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
-    const size_t shared = static_cast<size_t>(k) * 16;
-    if (shared <= 48 * 1024) {
-        charge_volume_kernel<true><<<blocks, pb::kThreads, shared, s>>>(
-            static_cast<const double*>(rho), static_cast<const int*>(labels),
-            c, v, n, k);
+    const int h = static_cast<int>(head);
+    if (k <= kPrivateK) {
+        double* ps = static_cast<double*>(scratch);
+        unsigned* pc = reinterpret_cast<unsigned*>(
+            ps + static_cast<long long>(g.blocks) * k);
+        if (rho_vec)
+            charge_volume_kernel<true, true><<<g.blocks, kSumThreads, g.smem,
+                                               s>>>(r, l, c, v, ps, pc, n, k,
+                                                    h);
+        else
+            charge_volume_kernel<true, false><<<g.blocks, kSumThreads,
+                                                g.smem, s>>>(r, l, c, v, ps,
+                                                             pc, n, k, h);
+        cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        charge_volume_blocks_kernel<<<(k + 7) / 8, pb::kThreads, 0, s>>>(
+            ps, pc, g.blocks, k, c, v);
     } else {
-        charge_volume_kernel<false><<<blocks, pb::kThreads, 0, s>>>(
-            static_cast<const double*>(rho), static_cast<const int*>(labels),
-            c, v, n, k);
+        zero_sums_kernel<<<small_blocks(k), pb::kThreads, 0, s>>>(c, v, k);
+        if (rho_vec)
+            charge_volume_kernel<false, true><<<g.blocks, kSumThreads, 0, s>>>(
+                r, l, c, v, nullptr, nullptr, n, k, h);
+        else
+            charge_volume_kernel<false, false><<<g.blocks, kSumThreads, 0,
+                                                 s>>>(r, l, c, v, nullptr,
+                                                      nullptr, n, k, h);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -50,9 +50,10 @@ _ENTRIES = {
     "pb_resolve_roots": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P),
     "pb_min_pair": (_P, _P, _P, _P, _L, _I, _I, _P),
     "pb_remap": (_P, _P, _P, _L, _I, _I, _P),
-    "pb_charge_volume": (_P, _P, _P, _P, _L, _I, _I, _P),
+    "pb_charge_volume": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
+    "pb_charge_volume_scratch": (_L, _I, _I, _P),
     "pb_surface_min_d2": (_P, _P, _P, _P, _P, *(_I,) * 9, _I, _I, _P),
-    "pb_edge_find": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "pb_edge_find": (_P, _P, _P, _I, _I, _I, _I, _P),
     "pb_edge_check": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pb_neargrid_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pb_neargrid_walk": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,

@@ -25,9 +25,10 @@ from pybader_tpu_torch.ops import _cuda
 CHECK_TILE = (8, 8, 32)
 
 
-def _box_reduce(a: torch.Tensor, combine) -> torch.Tensor:
-    """Separable periodic 3x3x3 reduction (self included)."""
-    for axis in range(3):
+def _box_reduce(a: torch.Tensor, combine, axes=(0, 1, 2)) -> torch.Tensor:
+    """Separable periodic 3-wide reduction along ``axes`` (self included):
+    the 3x3x3 box by default."""
+    for axis in axes:
         a = combine(combine(a, torch.roll(a, 1, axis)), torch.roll(a, -1, axis))
     return a
 
@@ -77,15 +78,16 @@ def edge_find_plain(labels, is_max):
 
 
 def edge_find_cuda(labels, is_max):
-    """Launch ``pb_edge_find`` (csrc/edges.cu)."""
+    """Launch ``pb_edge_find`` (csrc/edges.cu): one pass over tiles of
+    :data:`CHECK_TILE` voxels that tests only the z-rows near two
+    non-vacuum labels; a tile with none skips is_max
+    (:func:`find_tiles_active`)."""
     _check_grids(labels, is_max)
-    scratch = torch.empty(labels.shape, dtype=torch.uint8,
-                          device=labels.device)
     known = torch.empty(labels.shape, dtype=torch.int8, device=labels.device)
     nx, ny, nz = labels.shape
     _cuda.call("pb_edge_find", labels.data_ptr(), is_max.data_ptr(),
-               scratch.data_ptr(), known.data_ptr(), nx, ny, nz,
-               labels.device.index or 0, _cuda.stream(labels))
+               known.data_ptr(), nx, ny, nz, labels.device.index or 0,
+               _cuda.stream(labels))
     _cuda.launches["edge_find"] += 1
     return known
 
@@ -141,18 +143,53 @@ def check_reads(known: torch.Tensor, labels: torch.Tensor):
     return near | _box_reduce(cand, torch.logical_or), cand & _is_edge(labels)
 
 
+def _per_tile(a: torch.Tensor, fill, reduce) -> torch.Tensor:
+    """``reduce`` over each tile of :data:`CHECK_TILE` voxels (ragged
+    tiles padded with ``fill``): a (tiles x, tiles y, tiles z) grid."""
+    pad = [(-s) % t for s, t in zip(a.shape, CHECK_TILE)]
+    a = torch.nn.functional.pad(a, (0, pad[2], 0, pad[1], 0, pad[0]),
+                                value=fill)
+    tx, ty, tz = (s // t for s, t in zip(a.shape, CHECK_TILE))
+    return reduce(a.view(tx, CHECK_TILE[0], ty, CHECK_TILE[1], tz,
+                         CHECK_TILE[2]), dim=(1, 3, 5))
+
+
 def check_tiles_active(known: torch.Tensor) -> torch.Tensor:
     """Per tile of ``edge_check_cuda``, whether it has a -2 within 2 voxels
     (periodic) and so reads labels and is_max; the other tiles copy known.
     A (tiles x, tiles y, tiles z) bool grid."""
     near = _box_reduce(_box_reduce(known == -2, torch.logical_or),
                        torch.logical_or)
-    pad = [(-s) % t for s, t in zip(near.shape, CHECK_TILE)]
-    near = torch.nn.functional.pad(near.to(torch.uint8),
-                                   (0, pad[2], 0, pad[1], 0, pad[0]))
-    tx, ty, tz = (s // t for s, t in zip(near.shape, CHECK_TILE))
-    return near.view(tx, CHECK_TILE[0], ty, CHECK_TILE[1], tz,
-                     CHECK_TILE[2]).amax(dim=(1, 3, 5)).bool()
+    return _per_tile(near.to(torch.uint8), 0, torch.amax).bool()
+
+
+def find_tiles_active(labels: torch.Tensor) -> torch.Tensor:
+    """Per tile of ``edge_find_cuda``, whether it tests for edges and reads
+    is_max: whether some z-row of the tile grown by 1 has 3x3 neighbour
+    rows whose labels over the tile's z-range grown by 2 (periodic) hold
+    two non-vacuum values.  The other tiles write 2 or 0.  A (tiles x,
+    tiles y, tiles z) bool grid."""
+    nz, tz = labels.shape[2], CHECK_TILE[2]
+    vac = labels == -1
+    big = int(np.iinfo(np.int32).max)
+    lab = labels.to(torch.int32)
+    hi_all, lo_all = torch.where(vac, -big, lab), torch.where(vac, big, lab)
+    rows = torch.zeros(labels.shape, dtype=torch.uint8, device=labels.device)
+    for z0 in range(0, nz, tz):
+        vz = min(tz, nz - z0)
+        zs = torch.arange(z0 - 2, z0 + vz + 2, device=labels.device) % nz
+        hi = _box_reduce(hi_all[:, :, zs].amax(2), torch.maximum, (0, 1))
+        lo = _box_reduce(lo_all[:, :, zs].amin(2), torch.minimum, (0, 1))
+        mixed = _box_reduce(hi > lo, torch.logical_or, (0, 1))
+        rows[:, :, z0:z0 + vz] = mixed[:, :, None]
+    return _per_tile(rows, 0, torch.amax).bool()
+
+
+def find_reads(labels: torch.Tensor) -> torch.Tensor:
+    """Where ``edge_find`` must read is_max: the non-vacuum voxels whose
+    box holds another non-vacuum label (labels it reads everywhere); they
+    set the kernel's bound, which its tiles do not."""
+    return (labels != -1) & _is_edge(labels)
 
 
 def _check_grids(labels, is_max):

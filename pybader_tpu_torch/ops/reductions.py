@@ -10,6 +10,8 @@ CPU tensor always runs the plain version.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -138,16 +140,25 @@ def charge_volume_plain(density, labels, num_segments: int):
 
 
 def charge_volume_cuda(density, labels, num_segments: int):
-    """Launch ``pb_charge_volume`` (csrc/reduce.cu)."""
+    """Launch ``pb_charge_volume`` (csrc/reduce.cu).  Up to 512 labels its
+    blocks write partial sums to a scratch array (sized by
+    ``pb_charge_volume_scratch``) that a second kernel adds in block
+    order."""
     _cuda.check(labels, torch.int32, "labels")
     _cuda.check(density, torch.float64, "density", labels.shape)
+    dev = labels.device.index or 0
     charge = torch.empty((num_segments,), dtype=torch.float64,
                          device=labels.device)
     count = torch.empty((num_segments,), dtype=torch.int64,
                         device=labels.device)
+    nbytes = ctypes.c_longlong()
+    _cuda.call("pb_charge_volume_scratch", labels.numel(), num_segments, dev,
+               ctypes.addressof(nbytes))
+    scratch = torch.empty((nbytes.value,), dtype=torch.uint8,
+                          device=labels.device)
     _cuda.call("pb_charge_volume", density.data_ptr(), labels.data_ptr(),
-               charge.data_ptr(), count.data_ptr(), labels.numel(),
-               num_segments, labels.device.index or 0, _cuda.stream(labels))
+               charge.data_ptr(), count.data_ptr(), scratch.data_ptr(),
+               labels.numel(), num_segments, dev, _cuda.stream(labels))
     _cuda.launches["charge_volume"] += 1
     return charge, count
 

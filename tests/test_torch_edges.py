@@ -200,3 +200,95 @@ def test_check_tiles_active_marks_reach_of_two():
     known[4, 4, 16] = -2
     active = tedges.check_tiles_active(t(known)).numpy()
     assert active.sum() == 1 and active[0, 0, 0]
+
+
+def find_case(case):
+    """labels, is_max and the density of edge_find's hard inputs: axes of
+    extent 2, a grid that is no multiple of the 8x8x32 tile, one label
+    with vacuum blocks (its tiles hold one label: the skipped case), a
+    many-label noise grid and 25 % vacuum."""
+    if case in ("x2", "y2", "ragged", "vacuum25"):
+        shape = {"x2": (2, 32, 128), "y2": (8, 2, 128),
+                 "ragged": (14, 19, 45), "vacuum25": (8, 32, 128)}[case]
+        return setup(shape, 15, 0.25 if case == "vacuum25" else None)
+    rng = np.random.default_rng(16)
+    if case == "noise":
+        rho = rng.random((10, 12, 40))
+        w = tuple(jgrid.distance_weights(LAT, rho.shape))
+        labels, _ = jpipe.partition_ongrid(rho, None, w)
+        is_max = np.asarray(ongrid_step_codes(jnp.asarray(rho), w)) == 13
+        return rho, np.array(labels), is_max
+    # one label, vacuum in two blocks; every voxel its own maximum or not
+    shape = (16, 24, 96)
+    labels = np.zeros(shape, np.int32)
+    labels[2:6, 3:11, 10:40] = -1
+    labels[9:16, 17:24, 70:96] = -1
+    rho = rng.random(shape)
+    return rho, labels, rng.random(shape) < 0.1
+
+
+@pytest.mark.parametrize("case", ["x2", "y2", "ragged", "uniform", "noise",
+                                  "vacuum25"])
+def test_edge_find_hard_cases_match_xla_and_pallas(case):
+    rho, labels, is_max = find_case(case)
+    got = tedges.edge_find(t(rho), t(labels), t(is_max)).numpy()
+    want = np.asarray(jedges._edge_find_xla(
+        jnp.asarray(rho), jnp.asarray(labels), jnp.asarray(is_max)))
+    np.testing.assert_array_equal(got, want)
+    want = np.asarray(pallas_edges.edge_find(
+        jnp.asarray(labels), jnp.asarray(is_max), interpret=True))
+    np.testing.assert_array_equal(got, want)
+    if case == "uniform":
+        assert not (got < 0).any() and (got == 0).any()
+    else:
+        assert (got == -2).any()
+
+
+@pytest.mark.parametrize("case", ["x2", "ragged", "uniform", "noise",
+                                  "vacuum25"])
+def test_find_tiles_active_matches_brute_force(case):
+    """A tile is active where some z-row of the tile grown by 1 has 3x3
+    neighbour rows whose labels over the tile's z-range grown by 2
+    (periodic) hold two non-vacuum values; an inactive tile has no -2 or
+    -1 inside."""
+    _, labels, is_max = find_case(case)
+    active = tedges.find_tiles_active(t(labels)).numpy()
+    ext = np.asarray(labels.shape)
+    tiles = -(-ext // np.asarray(tedges.CHECK_TILE))
+    assert active.shape == tuple(tiles)
+    known = tedges.edge_find_plain(t(labels), t(is_max)).numpy()
+    for tile in np.ndindex(*tiles):
+        lo = np.asarray(tile) * tedges.CHECK_TILE
+        hi = np.minimum(lo + tedges.CHECK_TILE, ext)
+        zs = np.arange(lo[2] - 2, hi[2] + 2) % ext[2]
+        want = False
+        for x in range(lo[0] - 1, hi[0] + 1):
+            for y in range(lo[1] - 1, hi[1] + 1):
+                idx = np.ix_(np.arange(x - 1, x + 2) % ext[0],
+                             np.arange(y - 1, y + 2) % ext[1], zs)
+                want |= len(set(np.unique(labels[idx])) - {-1}) > 1
+        assert active[tile] == want, tile
+        if not want:
+            inner = known[tuple(slice(a, b) for a, b in zip(lo, hi))]
+            assert (inner >= 0).all()
+    if case == "uniform":
+        assert not active.any()
+    elif case == "noise":
+        assert active.all()
+
+
+@pytest.mark.parametrize("case", ["ragged", "vacuum25"])
+def test_find_reads_is_all_edge_find_reads(case):
+    """is_max outside ``find_reads`` does not change edge_find's output,
+    and the mask holds the non-vacuum voxels with another label in their
+    box."""
+    rho, labels, is_max = find_case(case)
+    read = tedges.find_reads(t(labels)).numpy()
+    want = tedges.edge_find(t(rho), t(labels), t(is_max)).numpy()
+    rng = np.random.default_rng(17)
+    flipped = np.where(read, is_max, rng.random(is_max.shape) < 0.5)
+    got = tedges.edge_find(t(rho), t(labels), t(flipped)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < read.sum() < read.size
+    np.testing.assert_array_equal(
+        read, (labels != -1) & tedges._is_edge(t(labels)).numpy())

@@ -141,6 +141,49 @@ def test_charge_volume_many_labels_and_empty():
     assert (c.numpy()[k - 50:] == 0).all() and (v.numpy()[k - 50:] == 0).all()
 
 
+def charge_volume_case(case):
+    """(density, labels, k) where the kernel's scalar head and tail and its
+    label filter run: labels below -1 and at or past k, a single label,
+    a length that is not a multiple of 4 (the label vector's width), and
+    contiguous views at storage offsets 1 (labels) and 3 (density)."""
+    rng = np.random.default_rng(21)
+    n, k = {"out_of_range": (9000, 17), "k1": (7001, 1),
+            "ragged": (4 * 2501 + 3, 23), "offset": (6006, 19)}[case]
+    lo, hi = (-3, k + 5) if case == "out_of_range" else (-1, k)
+    # runs of one label, as a basin's extent along z gives them
+    lab = np.repeat(rng.integers(lo, hi, size=n // 7 + 1), 7)[:n]
+    lab = lab.astype(np.int32)
+    rho = rng.uniform(0.1, 5.0, size=n)
+    lab_t, rho_t = torch.from_numpy(lab), torch.from_numpy(rho)
+    if case == "offset":
+        lab_t = offset_view(lab)
+        buf = torch.empty(n + 3, dtype=torch.float64)
+        buf[3:] = rho_t
+        rho_t = buf[3:]
+        assert rho_t.storage_offset() == 3 and rho_t.is_contiguous()
+    return rho_t, lab_t, k
+
+
+@pytest.mark.parametrize("case", ["out_of_range", "k1", "ragged",
+                                  "offset"])
+def test_charge_volume_edge_cases_match_xla_and_pallas(case):
+    rho, lab, k = charge_volume_case(case)
+    c, v = tr.charge_volume_sum(rho, lab, 0.7, k)
+    rho_j, lab_j = jnp.asarray(rho.numpy()), jnp.asarray(lab.numpy())
+    xc, xv = jr._charge_volume_sum_xla(rho_j, lab_j, 0.7, k)
+    pc, pv = pr.charge_volume(rho_j, lab_j, 0.7, k, interpret=True)
+    np.testing.assert_allclose(c.numpy(), np.asarray(xc), rtol=1e-12)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(xv))
+    np.testing.assert_allclose(c.numpy(), np.asarray(pc), rtol=1e-7)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(pv))
+    labels = lab.numpy()
+    keep = (labels >= 0) & (labels < k)
+    np.testing.assert_allclose(v.numpy().sum(), 0.7 * keep.sum(),
+                               rtol=1e-12)
+    if case == "out_of_range":
+        assert (labels < -1).any() and (labels >= k).any()
+
+
 def test_vacuum_mask_matches_jax():
     rng = np.random.default_rng(5)
     ref = rng.uniform(0.0, 1.0, size=(9, 10, 11))

@@ -12,6 +12,13 @@ compare two checkouts in one command, in turns (old, new, new, old).
 Inputs, all made on the card from seeds: chip_smoke's 384^3 blob field and
 384^3 white noise (seed 2), each through ``partition_ongrid``;
 
+- charge_volume on each field's labels (62 and about 2.1 M) and on the
+  blob field's atom labels (60, ``chip_smoke.atom_labels_of``);
+- edge_find on each field's labels with the stencil's maxima (on the blob
+  field: refinement's input), on the atom labels with ``edges.local_max``
+  (the surface stage's input) and on ``chip_smoke.edge_find_inputs``
+  (ragged grids, axes of 2, 25 % vacuum);
+
 - resolve_roots on the one-step parents of both fields and on
   ``chip_smoke.roots_inputs`` (a ramp along x, a flat parent of odd length);
 - remap_labels of each field's labels through a random permutation of its
@@ -22,7 +29,7 @@ Inputs, all made on the card from seeds: chip_smoke's 384^3 blob field and
 - edge_check on the known grid after that walk (dense), on 0.6 M of its
   edges sampled with seed 5 (sparse), on the input the last edge_check of
   a default ``Bader()`` call receives (last) and on
-  ``chip_smoke.edge_check_inputs`` (ragged grids, an axis of 2, 25 %
+  ``chip_smoke.edge_check_inputs`` (ragged grids, axes of 2, 25 %
   vacuum);
 - the chase on shard 0's padded block of the first chase round on
   ``make_mesh(4, device="cuda")`` (the flood seed; the table's row);
@@ -84,6 +91,18 @@ def main(argv=None):
              (pointer.resolve_roots_plain(parent),), name)
         out[name] = {"ms": timed(lambda: pointer.resolve_roots_cuda(parent))}
 
+    def sums(name, density, labels, k):
+        cs.close(1e-9)(reductions.charge_volume_cuda(density, labels, k),
+                       reductions.charge_volume_plain(density, labels, k))
+        out[name] = {"labels": k, "ms": timed(
+            lambda: reductions.charge_volume_cuda(density, labels, k))}
+
+    def find(name, labels, is_max):
+        same((edges.edge_find_cuda(labels, is_max),),
+             (edges.edge_find_plain(labels, is_max),), name)
+        out[name] = {"ms": timed(lambda: edges.edge_find_cuda(labels,
+                                                              is_max))}
+
     def check(name, known, labels, is_max):
         same((edges.edge_check_cuda(known, labels, is_max),),
              (edges.edge_check_plain(known, labels, is_max),), name)
@@ -97,11 +116,13 @@ def main(argv=None):
     noise = torch.rand(shape, dtype=torch.float64, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(2))
     for name, field in (("noise", noise), ("blob", rho)):
-        parent = stencil.parent_from_step_codes(
-            pipeline.step_codes(field, None, w))
+        codes = pipeline.step_codes(field, None, w)
+        parent = stencil.parent_from_step_codes(codes)
         roots(f"roots_{name}", parent)
         labels, maxima = pipeline.partition_ongrid(field, None, w)
         k = len(maxima)
+        sums(f"charge_volume_{name}", field, labels, k)
+        find(f"find_{name}", labels, codes == 13)
         table = torch.randperm(k, generator=gen, device="cuda").to(
             torch.int32)
         same((reductions.remap_labels_cuda(labels, table, k),),
@@ -115,11 +136,14 @@ def main(argv=None):
             # a device copy moves the same 8 bytes a voxel: the rate the
             # card reaches on a plain stream
             "copy_ms": timed(labels.clone)}
-    del noise, parent  # labels: the blob field's
+    del noise, parent  # labels, codes: the blob field's
+    atom = cs.atom_labels_of(labels, maxima, atoms)
+    sums("charge_volume_atoms", rho, atom, len(atoms))
+    find("find_surface", atom, edges.local_max(rho, atom))
+    del atom
     for name, parent in cs.roots_inputs(shape, "cuda").items():
         roots(f"roots_{name.split()[-1]}", parent)
     del parent
-    codes = pipeline.step_codes(rho, None, w)
     tg = torch.as_tensor(grid.t_grad(cs.LATTICE, shape), device="cuda")
     known = edges.edge_find_cuda(labels, codes == 13)
     rows = neargrid.neargrid_rows_cuda(rho, codes, tg, True)
@@ -152,6 +176,9 @@ def main(argv=None):
     for name, *case in cs.edge_check_inputs(
             rho, is_max, torch.Generator(device="cuda").manual_seed(6)):
         check(f"check_{name} {'x'.join(map(str, case[0].shape))}", *case)
+    for name, *case in cs.edge_find_inputs(
+            rho, is_max, torch.Generator(device="cuda").manual_seed(7)):
+        find(f"find_{name} {'x'.join(map(str, case[0].shape))}", *case)
     codes_b, values, _, _ = cs.mesh_chase_inputs(
         rho, shape, make_mesh(cs.MESH_SHARDS, device="cuda"), w)
     cs.chase_same(chase.chase_cuda(values, codes_b),

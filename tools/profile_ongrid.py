@@ -14,7 +14,8 @@ then once under
 with the device time of the profiled run by kind: host<->device copies,
 each hand-written kernel of ``pybader_tpu_torch/csrc``, every other kernel,
 the share of the wall time in which the device was busy, and the sums of
-edge_check's and resolve_roots' kernels over their launches.  ``--trace``
+edge_check's, resolve_roots', charge_volume's and edge_find's kernels over
+their launches.  ``--trace``
 also writes the chrome trace.  ``--root`` profiles the port of another
 checkout (unpacked with ``git archive``), with this script's kernel names,
 which include those of earlier designs.
@@ -39,20 +40,26 @@ import chip_smoke  # noqa: E402
 from pybader_tpu_torch.parallel import make_mesh  # noqa: E402
 
 # __global__ functions of csrc/*.cu, matched in the demangled kernel names
-# (check_flags/check_near: the edge_check design before edge_check_kernel)
+# (check_flags/check_near: the edge_check design before edge_check_kernel;
+# find_flags/find_known: edge_find's before edge_find_kernel)
 HAND_WRITTEN = ("ongrid_step_codes_kernel", "jump_kernel", "min_pair_kernel",
                 "remap_kernel", "charge_volume_kernel",
-                "surface_min_d2_kernel", "fill_int_kernel",
-                "zero_sums_kernel", "fill_u64_kernel", "find_flags_kernel",
-                "find_known_kernel", "check_flags_kernel",
-                "check_near_kernel", "edge_check_kernel", "tile_roots_kernel",
-                "rows_kernel", "walk_kernel", "pointer_kernel",
-                "gather_kernel", "walk_shard_kernel", "stop_bitmap_kernel")
+                "charge_volume_blocks_kernel", "surface_min_d2_kernel",
+                "fill_int_kernel", "zero_sums_kernel", "fill_u64_kernel",
+                "find_flags_kernel", "find_known_kernel", "edge_find_kernel",
+                "check_flags_kernel", "check_near_kernel",
+                "edge_check_kernel", "tile_roots_kernel", "rows_kernel",
+                "walk_kernel", "pointer_kernel", "gather_kernel",
+                "walk_shard_kernel", "stop_bitmap_kernel")
 # kernels of one op, summed over its launches; on one device jump_kernel
 # runs only in the roots (the chase runs on a mesh)
 SUMS = {"edge_check": ("check_flags_kernel", "check_near_kernel",
                        "edge_check_kernel"),
-        "resolve_roots": ("jump_kernel", "tile_roots_kernel")}
+        "resolve_roots": ("jump_kernel", "tile_roots_kernel"),
+        "charge_volume": ("zero_sums_kernel", "charge_volume_kernel",
+                          "charge_volume_blocks_kernel"),
+        "edge_find": ("find_flags_kernel", "find_known_kernel",
+                      "edge_find_kernel")}
 ONGRID = {"method": "ongrid", "refine_method": "ongrid"}
 
 
