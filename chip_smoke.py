@@ -17,7 +17,12 @@ Phases (one line of output each, or a few):
      (global atomics) and on the atom labels; edge_find on the surface
      stage's input (atom labels, maxima from the density); resolve_roots
      also on a ramp along x (chains across every tile) and a flat parent
-     of odd length, with its pass counts
+     of odd length, with its pass counts; ongrid_step_codes also on ragged
+     grids and axes of 1 and 2, the field shifted to negative values, a
+     tie-heavy copy quantised to 1/8 and the mesh's 1-haloed shard block;
+     surface_min_d2 also with five atoms that own no voxel, with labels of
+     -1 and num_atoms among the edges, on a hexagonal lattice and on a
+     mesh shard with its origin
   5. neargrid: the four refinement kernels at 384^3 on the same field:
      edge_find on the ongrid labels, neargrid_rows for both gradient tests,
      neargrid_walk on iteration 1's full edge set (stop at known == 2, the
@@ -44,8 +49,10 @@ Phases (one line of output each, or a few):
      resolve_roots
   8. noise: a 384^3 white-noise field (about 2 M basins): the five
      partition and sum kernels against their plain versions at that label
-     count and edge_find on its labels (no tile skipped), then the
-     main-path partition and sums against the plain chain
+     count and edge_find on its labels (no tile skipped), surface_min_d2 on
+     its atom labels (nearly every voxel an edge) and with a basin an atom
+     (about 2 M atoms), then the main-path partition and sums against the
+     plain chain
   9. cli: the ``bader`` CLI on tests/fixtures/CHGCAR_fixture, with -m
      ongrid (charge conserved) and with the default profile (per-atom
      charges, volumes and maxima against the fixture's golden file)
@@ -86,8 +93,12 @@ Times are CUDA events, median of 5 (the chase's plain version: one run,
 after a warm-up).  Each kernel's bound is the least time
 the card could take for its work: the larger of the bytes it must move
 (inputs read once, outputs written once; for the walks, the rows their lanes
-touch) over 3.35 TB/s and its operations over the card's rate for their
-type, 34 TFLOP/s in f64 and 67 TFLOP/s in f32 (H100 SXM data sheet).
+touch) over 3.35 TB/s and its operations over the card's instruction rate
+for their type: 132 SMs x 64 FP64 lanes x 1.98 GHz = 16.7e12 a second in
+f64, 132 x 128 FP32 lanes x 1.98 GHz = 33.5e12 in f32.  The data sheet's 34
+and 67 TFLOP/s count a fused multiply-add as two operations; the kernels
+build with -fmad=false, so every add, subtract and multiply counted is one
+instruction of its own.
 ``library_ms`` times one PyTorch call that computes the same function where
 one exists; the port never calls it.
 
@@ -121,8 +132,12 @@ WALK_STARTS = 1 << 20
 N_BLOBS = 60
 LATTICE = np.diag([20.0, 20.0, 20.0])
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
-F64_OPS_PER_S = 34e12      # H100 SXM, f64 outside the tensor cores
-F32_OPS_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
+# H100 SXM instruction rates outside the tensor cores (SMs x lanes x boost
+# clock): each counted add, subtract or multiply is one instruction, since
+# the library builds with -fmad=false (the data sheet's 34 and 67 TFLOP/s
+# count an FMA as two operations)
+F64_OPS_PER_S = 132 * 64 * 1.98e9
+F32_OPS_PER_S = 132 * 128 * 1.98e9
 # the variant calls: environment over the default profile
 VARIANTS = (
     {"PYBADER_TPU_HYBRID_INIT": "nginit", "PYBADER_TPU_QROWS": "internal",
@@ -311,12 +326,11 @@ def partition_kernels(rho, shape, res, phase="kernel"):
 
     n = rho.numel()
     w = tuple(grid.distance_weights(LATTICE, shape))
-    # 26 candidates of (rho_n - rho_p) * w + rho_p: 78 f64 operations
     codes = compare(
         "ongrid_step_codes", res,
         lambda: stencil.ongrid_step_codes_cuda(rho, w),
         lambda: stencil.ongrid_step_codes_plain(rho, w), equal, phase,
-        bound(9 * n, 78 * n))
+        stencil_cost(n))
     parent = stencil.parent_from_step_codes(codes)
     roots = compare(
         "resolve_roots", res,
@@ -474,10 +488,129 @@ def atom_labels_of(labels, maxima, atoms_cart):
     maxima_cart = (torch.as_tensor(maxima, device=dev).double()
                    / torch.as_tensor(labels.shape, dtype=torch.float64,
                                      device=dev)) @ lat
-    atom_idx, _ = atoms_ops.assign_to_atoms(
-        maxima_cart, torch.as_tensor(atoms_cart, device=dev), lat)
+    atoms_t = torch.as_tensor(atoms_cart, device=dev)
+    # in chunks: the noise field has about 2 M maxima
+    atom_idx = torch.cat([
+        atoms_ops.assign_to_atoms(maxima_cart[i:i + (1 << 15)], atoms_t,
+                                  lat)[0]
+        for i in range(0, len(maxima_cart), 1 << 15)])
     return reductions.remap_labels_plain(labels, atom_idx.to(torch.int32),
                                          len(maxima))
+
+
+def stencil_inputs(rho, shape):
+    """The stencil's hard inputs beside the blob field, as (name, density,
+    weights): ragged grids and axes of 1 and 2 (blob fields of their own),
+    the field shifted to negative values, a tie-heavy copy quantised to
+    1/8, and the mesh's 1-haloed block of shard 0 (make_mesh(4))."""
+    from pybader_tpu_torch import grid
+    from pybader_tpu_torch.parallel import make_mesh
+    from pybader_tpu_torch.parallel import mesh as pmesh
+
+    def weights(s):
+        return tuple(grid.distance_weights(LATTICE, s))
+
+    for s in ((9, 13, 37), (1, 5, 33), (2, 2, 40), (37, 29, 45),
+              (shape[0] - 3, shape[1] - 1, shape[2] + 1)):
+        yield "ragged", blob_field(s, rho.device)[0], weights(s)
+    yield "negative", rho - rho.mean(), weights(shape)
+    yield "tie-heavy", torch.round(rho * 8.0) / 8.0, weights(shape)
+    lay = pmesh.Layout(make_mesh(MESH_SHARDS, device=DEVICE), shape)
+    yield ("shard block", pmesh.halo(pmesh.shard(lay, rho), 1)[0]
+           .contiguous(), weights(shape))
+
+
+def stencil_cost(n):
+    """ongrid_step_codes' bound: 8 bytes read and 1 written a voxel; 26
+    candidates of (rho_n - rho_p) * w + rho_p, 78 f64 operations."""
+    return bound(9 * n, 78 * n)
+
+
+def stencil_cases(rho, shape, phase):
+    """ongrid_step_codes against its plain version on
+    :func:`stencil_inputs`, with the time of each."""
+    from pybader_tpu_torch.ops import stencil
+
+    for name, dens, w in stencil_inputs(rho, shape):
+        equal(stencil.ongrid_step_codes_cuda(dens, w),
+              stencil.ongrid_step_codes_plain(dens, w))
+        ms = time_ms(lambda: stencil.ongrid_step_codes_cuda(dens, w))
+        say(phase, f"ongrid_step_codes on {name} {tuple(dens.shape)}: equal "
+            f"to its plain version; {ms:.3f} ms, bound "
+            f"{stencil_cost(dens.numel())['bound_ms']:.3f} ms")
+
+
+def surface_cost(labels, mask, num_atoms):
+    """surface_min_d2's bound from this run's data: one mask byte a voxel,
+    the 32-byte label sectors that hold an edge voxel, 32 bytes an atom
+    (its position read, d2 written); for each edge voxel whose label is an
+    atom, 3 f32 products (its fractional position), 15 f64 operations (its
+    cartesian position) and per image 3 differences, 3 squares and 2 sums
+    (the images atom + shift_s are formed once an atom, and not counted)."""
+    idx = torch.nonzero(mask.reshape(-1)).reshape(-1)
+    lab = labels.reshape(-1)[idx]
+    n_edge = int(((lab >= 0) & (lab < num_atoms)).sum())
+    sectors = int(torch.unique(idx // 8).numel())
+    return bound(mask.numel() + 32 * sectors + 32 * num_atoms,
+                 (15 + 27 * 8) * n_edge, 3 * n_edge)
+
+
+def surface_inputs(labels, mask, atoms_t, gen):
+    """surface_min_d2's hard inputs beside the surface stage's, as (name,
+    labels, mask, atoms, num_atoms, origin, shape, lattice): five atoms
+    more, placed by ``gen``, that own no voxel (+inf), labels of -1 and
+    num_atoms among the edges (both skipped), a hexagonal lattice (the
+    atoms at the same fractional places) and the last shard of
+    make_mesh(4) with its origin in the grid."""
+    from pybader_tpu_torch.parallel import make_mesh
+    from pybader_tpu_torch.parallel import mesh as pmesh
+
+    n_atoms = atoms_t.shape[0]
+    lat = torch.as_tensor(LATTICE, device=labels.device)
+    extra = torch.rand((5, 3), dtype=torch.float64, device=labels.device,
+                       generator=gen) @ lat
+    yield (f"{n_atoms + 5} atoms", labels, mask, torch.cat([atoms_t, extra]),
+           n_atoms + 5, (0, 0, 0), None, LATTICE)
+    flat = torch.arange(labels.numel(), device=labels.device).view(
+        labels.shape)
+    odd = torch.where(flat % 7 == 0, -1,
+                      torch.where(flat % 11 == 0, n_atoms, labels))
+    yield ("labels -1 and num_atoms", odd.to(torch.int32), mask, atoms_t,
+           n_atoms, (0, 0, 0), None, LATTICE)
+    hexagonal = np.array([[20.0, 0.0, 0.0], [-10.0, 10.0 * np.sqrt(3.0), 0.0],
+                          [0.0, 0.0, 20.0]])
+    frac = atoms_t @ torch.linalg.inv(lat)
+    yield ("a hexagonal lattice", labels, mask,
+           frac @ torch.as_tensor(hexagonal, device=labels.device), n_atoms,
+           (0, 0, 0), None, hexagonal)
+    lay = pmesh.Layout(make_mesh(MESH_SHARDS, device=DEVICE),
+                       tuple(labels.shape))
+    s = len(lay.ids) - 1
+    yield (f"shard {s}", pmesh.shard(lay, labels).blocks[s],
+           pmesh.shard(lay, mask).blocks[s], atoms_t, n_atoms, lay.origin(s),
+           lay.shape, LATTICE)
+
+
+def surface_case(name, labels, mask, atoms_t, k, origin, shape, lattice,
+                 phase):
+    """surface_min_d2 against its plain version (close(1e-12)) on one
+    input, with its largest difference, its time and its bound."""
+    from pybader_tpu_torch.ops import atoms as atoms_ops
+
+    lat = torch.as_tensor(lattice)  # on the host, as the interface has it
+    origin = tuple(origin)
+    got = atoms_ops.surface_min_d2_cuda(labels, mask, lat, atoms_t, k,
+                                        origin, shape)
+    want = atoms_ops.surface_min_d2_plain(labels, mask, lat, atoms_t, k,
+                                          origin, shape)
+    close(1e-12)(got, want)
+    ms = time_ms(lambda: atoms_ops.surface_min_d2_cuda(
+        labels, mask, lat, atoms_t, k, origin, shape))
+    say(phase, f"surface_min_d2 on {name} {tuple(labels.shape)} at {origin} "
+        f"({k} atoms, {int(torch.isfinite(want).sum())} with edges): equal "
+        f"to its plain version, max_abs_err {max_abs_err(got, want)}; "
+        f"{ms:.3f} ms, bound "
+        f"{surface_cost(labels, mask, k)['bound_ms']:.3f} ms")
 
 
 def kernel_phase(rho, atoms_cart, shape):
@@ -488,8 +621,9 @@ def kernel_phase(rho, atoms_cart, shape):
 
     res = {}
     labels, maxima, n_max, codes = partition_kernels(rho, shape, res)
+    stencil_cases(rho, shape, "kernel")
     roots_cases(shape, "kernel")
-    lat = torch.as_tensor(LATTICE, device=rho.device)
+    lat = torch.as_tensor(LATTICE)  # on the host, as the interface has it
     atoms_t = torch.as_tensor(atoms_cart, device=rho.device)
     atom_labels = atom_labels_of(labels, maxima, atoms_cart)
     n_atoms = atoms_t.shape[0]
@@ -503,15 +637,17 @@ def kernel_phase(rho, atoms_cart, shape):
     say("kernel", f"charge_volume on the atom labels ({n_atoms}): equal to "
         f"its plain version; {ms:.3f} ms")
     n_edge = int(edge_mask.sum())
-    # per edge voxel and image: 3 subtractions, 3 products, 2 sums
     compare("surface_min_d2", res,
             lambda: atoms_ops.surface_min_d2_cuda(
                 atom_labels, edge_mask, lat, atoms_t, n_atoms),
             lambda: atoms_ops.surface_min_d2_plain(
                 atom_labels, edge_mask, lat, atoms_t, n_atoms),
             close(1e-12), "kernel",
-            bound(5 * rho.numel() + 32 * n_atoms, 27 * 8 * n_edge))
+            surface_cost(atom_labels, edge_mask, n_atoms))
     say("kernel", f"{n_max} maxima, {n_edge} edge voxels")
+    gen = torch.Generator(device=rho.device).manual_seed(8)
+    for case in surface_inputs(atom_labels, edge_mask, atoms_t, gen):
+        surface_case(*case, "kernel")
     return res, labels, atom_labels, codes
 
 
@@ -788,15 +924,32 @@ def qrows_phase(rho, shape, codes, labels, res):
         f"it {walk_ms:.3f} ms, exact walk {exact_ms:.3f} ms")
 
 
-def noise_phase(shape, device="cuda"):
+def noise_surface_inputs(rho, labels, maxima, atoms_cart):
+    """surface_min_d2's inputs on the noise field, as (name, labels, atoms):
+    its basins' atoms (each maximum to its nearest blob atom) and every
+    basin an atom of its own at a random place (seed 9)."""
+    dev = rho.device
+    yield ("the noise field's atom labels",
+           atom_labels_of(labels, maxima, atoms_cart),
+           torch.as_tensor(atoms_cart, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    k = len(maxima)
+    yield ("the noise field's basins as atoms", labels,
+           torch.rand((k, 3), dtype=torch.float64, device=dev,
+                      generator=gen) @ torch.as_tensor(LATTICE, device=dev))
+
+
+def noise_phase(shape, atoms_cart, device="cuda"):
     """Many labels: a white-noise field has about N/27 one-voxel-deep
     basins, so charge_volume takes its global-atomic branch (K > 3072) and
     min_pair and remap run at millions of labels.  The kernels are held
-    against their plain versions, then the partition and the basin sums
-    run through the main path and must give the plain chain's labels,
-    maxima and volumes."""
+    against their plain versions, and surface_min_d2 on the field's atom
+    labels (its basins to the blob field's atoms: nearly every voxel is an
+    edge) and with every basin an atom (random positions, seed 9); then the
+    partition and the basin sums run through the main path and must give
+    the plain chain's labels, maxima and volumes."""
     from pybader_tpu_torch import grid, pipeline
-    from pybader_tpu_torch.ops import _cuda, reductions
+    from pybader_tpu_torch.ops import _cuda, edges, reductions
 
     gen = torch.Generator(device=device).manual_seed(2)
     rho = torch.rand(shape, dtype=torch.float64, device=device,
@@ -805,6 +958,13 @@ def noise_phase(shape, device="cuda"):
                                                           "noise")
     find_case("the noise field", labels_p, codes == 13, "noise")
     del codes
+    for name, labels, atoms_t in noise_surface_inputs(
+            rho, labels_p, maxima_p, atoms_cart):
+        mask = edges.edge_find_plain(labels, edges.local_max(rho, labels)) \
+            == -2
+        surface_case(name, labels, mask, atoms_t, atoms_t.shape[0],
+                     (0, 0, 0), None, LATTICE, "noise")
+        del labels, mask
     vox = grid.voxel_volume(LATTICE, shape)
     _cuda.launches.clear()
     labels, maxima = pipeline.partition_ongrid(
@@ -1422,7 +1582,7 @@ def main():
     neargrid_phase(rho, shape, codes, plain_labels, results)
     qrows_phase(rho, shape, codes, plain_labels, results)
     chase_phase(shape, codes)
-    noise_phase(shape, DEVICE)
+    noise_phase(shape, atoms_cart, DEVICE)
     with tempfile.TemporaryDirectory() as tmp:
         cli_phase(tmp)
         e2e_phase(rho, atoms_cart, shape, tmp, plain_labels,

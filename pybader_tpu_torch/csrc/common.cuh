@@ -42,6 +42,29 @@ inline cudaStream_t as_stream(void* s) {
     return reinterpret_cast<cudaStream_t>(s);
 }
 
+// v mod n for any v (halo coordinates of axes shorter than the halo wrap
+// more than once).
+__device__ __forceinline__ int mod_n(int v, int n) {
+    v %= n;
+    return v < 0 ? v + n : v;
+}
+
+// One bit per byte of a 16-byte vector: byte k -> bit k.  EQ: byte == -2;
+// else byte != 0.
+template <bool EQ>
+__device__ __forceinline__ unsigned byte_mask16(uint4 v) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+    unsigned m = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const unsigned e = EQ ? __vcmpeq4(w[k], 0xFEFEFEFEu)
+                              : __vcmpne4(w[k], 0u);
+        m |= ((e & 0x01u) | ((e >> 7) & 0x02u) | ((e >> 14) & 0x04u) |
+              ((e >> 21) & 0x08u)) << (4 * k);
+    }
+    return m;
+}
+
 // Flat voxel index -> (x, y, z) of an x-major (nx, ny, nz) grid.
 __device__ __forceinline__ void unflatten(long long i, int ny, int nz,
                                           int& x, int& y, int& z) {

@@ -60,29 +60,6 @@ constexpr int kLabStride = kTZ + 8;  // z offsets -2..33 at 2..37; 16 B rows
 constexpr int kCheckThreads = 256;
 typedef unsigned long long u64;
 
-// v mod n for any v (halo coordinates of axes shorter than the halo wrap
-// more than once).
-__device__ __forceinline__ int mod_n(int v, int n) {
-    v %= n;
-    return v < 0 ? v + n : v;
-}
-
-// One bit per byte of a 16-byte vector: byte k -> bit k.  EQ: byte == -2;
-// else byte != 0.
-template <bool EQ>
-__device__ __forceinline__ unsigned byte_mask16(uint4 v) {
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
-    unsigned m = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        const unsigned e = EQ ? __vcmpeq4(w[k], 0xFEFEFEFEu)
-                              : __vcmpne4(w[k], 0u);
-        m |= ((e & 0x01u) | ((e >> 7) & 0x02u) | ((e >> 14) & 0x04u) |
-              ((e >> 21) & 0x08u)) << (4 * k);
-    }
-    return m;
-}
-
 // The 3-wide OR along z of a row word.
 __device__ __forceinline__ u64 zbox(u64 w) { return w | (w << 1) | (w >> 1); }
 
@@ -110,13 +87,13 @@ __device__ void init_tile(Tile& t, int nx, int ny, int nz) {
         t.vz = min(kTZ, nz - t.z0);
     }
     __syncthreads();
-    if (tid < kTX + 4) t.gx[tid] = mod_n(t.x0 + tid - 2, nx);
+    if (tid < kTX + 4) t.gx[tid] = pb::mod_n(t.x0 + tid - 2, nx);
     else if (tid < kTX + kTY + 8) t.gy[tid - kTX - 4] =
-        mod_n(t.y0 + tid - kTX - 6, ny);
+        pb::mod_n(t.y0 + tid - kTX - 6, ny);
     else if (tid < kTX + kTY + 12) {
         const int slot = tid - kTX - kTY - 8;
-        t.gz[slot] = mod_n(t.z0 + (slot < 2 ? slot - 2 : t.vz + slot - 2),
-                           nz);
+        t.gz[slot] = pb::mod_n(
+            t.z0 + (slot < 2 ? slot - 2 : t.vz + slot - 2), nz);
     }
 }
 
@@ -156,7 +133,7 @@ __device__ bool stage_bits(const signed char* __restrict__ g, const Tile& t,
         unsigned m = 0;
         if (vec && 16 * c + 16 <= t.vz) {
             const uint4 v = *reinterpret_cast<const uint4*>(src);
-            m = byte_mask16<EQ>(v);
+            m = pb::byte_mask16<EQ>(v);
             if (kr != nullptr) *reinterpret_cast<uint4*>(kr) = v;
         } else {
             for (int j = 0; j < 16 && 16 * c + j < t.vz; ++j) {

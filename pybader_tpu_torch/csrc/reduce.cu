@@ -4,8 +4,9 @@
 // pybader_tpu/ops/pallas_reduce.py.  The TPU kernels loop over every label
 // inside each VMEM tile (no scatters on the TPU), which caps them at 256
 // labels; on Hopper a voxel (or a run of voxels of one label) goes to its
-// label's slot, so these take any label count.  All four are bound by
-// device memory: each reads the grid once (remap also writes it).
+// label's slot, so these take any label count.  The first three are bound
+// by device memory: each reads the grid once (remap also writes it); the
+// surface distance by its FP64 work where edges are dense.
 
 #include <climits>
 
@@ -482,66 +483,183 @@ inline SumsLaunch sums_launch(long long n, int k, int device) {
 // pybader_tpu/ops/atoms.py:surface_distance_from_edges:
 //     frac = (x/nx, y/ny, z/nz); pc = frac @ lattice
 //     d2 = min_s |pc - (atom + shift_s)|^2
-// Bound: 5 bytes read a voxel and ~250 flops per edge voxel (a few percent
-// of voxels).  The minimum is an atomicMin on the bits of a non-negative
-// double (their integer order is their numeric order), skipped when the
-// slot already holds a smaller value.
+// The grid may be one shard of a mesh: (lx, ly, lz) voxels at (ox, oy, oz)
+// of the (nx, ny, nz) grid, whose global position x / nx the kernel uses.
 //
-// The grid may be one shard of a mesh: (lx, ly, lz) voxels at (ox, oy, oz) of
-// the (nx, ny, nz) grid, whose global position x / nx the kernel uses.
-__global__ void surface_min_d2_kernel(const int* __restrict__ labels,
-                                      const unsigned char* __restrict__ mask,
-                                      const double* __restrict__ geo,
-                                      const double* __restrict__ atoms,
-                                      unsigned long long* __restrict__ d2,
-                                      int lx, int ly, int lz, int ox, int oy,
-                                      int oz, int nx, int ny, int nz,
-                                      int num_atoms) {
-    // geo: 27 image shifts (x, y, z each) then the 3x3 lattice, row-major
-    __shared__ double g[90];
-    if (threadIdx.x < 90) g[threadIdx.x] = geo[threadIdx.x];
+// Bound: the function reads one mask byte a voxel and the label sectors
+// that hold an edge voxel, and does 15 + 27 x 8 FP64 operations an edge
+// voxel (its position, then 3 differences, 3 squares and 2 sums an image):
+// 12.5 % of the voxels of the surface stage's input at 384^3, nearly all
+// on white noise.  Edge voxels come in runs that cross nearly every warp,
+// so a warp gathers them before it does their FP64 work with all lanes.
+//
+// Design: every warp works on its own, with no block barrier until the
+// end.  A persistent block's warps stride over spans of kWarpSpan voxels;
+// a lane reads 16 mask bytes as one 16-byte vector (the next span's
+// vector in flight while it scans the current one), issues its label
+// loads under the mask before it uses any, and a warp with no mask byte
+// set goes on.  The edge voxels whose label l is in [0, num_atoms) go to
+// the warp's queue in shared memory (offsets from a shuffle scan of the
+// lanes' counts).  Whenever the queue holds 32 voxels, the warp evaluates
+// 32 at once, all lanes live: 32-bit coordinates, the label read again
+// (an L1 or L2 hit), and the images atom + shift_s added in registers
+// (the plain version's single addition, so the same values).  So the FP64
+// work of some warps overlaps the loads of others.  Each lane folds its
+// minimum into the block's minimum of its atom in shared memory by a
+// 64-bit atomicMin, skipped when the slot already holds a smaller value
+// (once an atom's minimum has settled, nearly always), and the block adds
+// one global atomicMin an atom.  Minima go through the bits of the
+// non-negative doubles, whose integer order is their numeric order.
+constexpr int kSurfThreads = 512;
+constexpr int kSurfWarps = kSurfThreads / 32;
+constexpr int kWarpSpan = 32 * 16;                 // voxels a warp-step
+constexpr int kWarpQueue = 32 + kWarpSpan;         // never overflows
+constexpr int kMinSlots = 2048;   // atoms with a block minimum in shared
+                                  // memory; the rest go to global atomics
+constexpr unsigned long long kInfBits = 0x7ff0000000000000ull;
+
+// The 27 image shifts (x, y, z each) then the 3x3 lattice, row-major,
+// passed by value: a kernel parameter sits in the constant bank, which an
+// FP64 instruction reads as its operand.
+struct Geometry {
+    double g[90];
+};
+
+inline size_t surface_smem(int num_atoms) {
+    const int slots = num_atoms < kMinSlots ? num_atoms : kMinSlots;
+    return static_cast<size_t>(slots) * 8 +
+           static_cast<size_t>(kSurfWarps) * kWarpQueue * 4;
+}
+
+__global__ void __launch_bounds__(kSurfThreads)
+    surface_min_d2_kernel(const int* __restrict__ labels,
+                          const unsigned char* __restrict__ mask,
+                          const Geometry geo,
+                          const double* __restrict__ atoms,
+                          unsigned long long* __restrict__ d2, int lx, int ly,
+                          int lz, int ox, int oy, int oz, int nx, int ny,
+                          int nz, int num_atoms) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int slots = min(num_atoms, kMinSlots);
+    unsigned long long* bmin = reinterpret_cast<unsigned long long*>(smem);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    int* queue = reinterpret_cast<int*>(bmin + slots) + warp * kWarpQueue;
+    for (int a = tid; a < slots; a += kSurfThreads) bmin[a] = kInfBits;
     __syncthreads();
-    const double* lat = g + 81;
-    const long long n = static_cast<long long>(lx) * ly * lz;
-    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         i < n; i += stride) {
-        if (!mask[i]) continue;
-        const int l = labels[i];
-        if (l < 0 || l >= num_atoms) continue;
-        int x, y, z;
-        pb::unflatten(i, ly, lz, x, y, z);
-        x += ox;
-        y += oy;
-        z += oz;
-        // JAX promotes its int32 / int division to float32 and XLA
-        // evaluates it as a multiply by the float32 reciprocal; then the
-        // quotient widens to f64.  Match that value exactly.
-        const double fx = static_cast<double>(
-            __fmul_rn(static_cast<float>(x), __frcp_rn(static_cast<float>(nx))));
-        const double fy = static_cast<double>(
-            __fmul_rn(static_cast<float>(y), __frcp_rn(static_cast<float>(ny))));
-        const double fz = static_cast<double>(
-            __fmul_rn(static_cast<float>(z), __frcp_rn(static_cast<float>(nz))));
-        const double px = fx * lat[0] + fy * lat[3] + fz * lat[6];
-        const double py = fx * lat[1] + fy * lat[4] + fz * lat[7];
-        const double pz = fx * lat[2] + fy * lat[5] + fz * lat[8];
-        const double ax = atoms[3 * l];
-        const double ay = atoms[3 * l + 1];
-        const double az = atoms[3 * l + 2];
-        double best = __longlong_as_double(0x7ff0000000000000ll);  // +inf
+    const float rx = __frcp_rn(static_cast<float>(nx));
+    const float ry = __frcp_rn(static_cast<float>(ny));
+    const float rz = __frcp_rn(static_cast<float>(nz));
+    const int plane = ly * lz;
+
+    // Evaluate the warp's queue entries [base, base + live_count), fold
+    // the minima.
+    const auto evaluate = [&](int base, int live_count) {
+        const bool live = lane < live_count;
+        int l = -1;
+        double best = __longlong_as_double(kInfBits);
+        if (live) {
+            const int i = queue[base + lane];
+            l = __ldg(labels + i);
+            const int x = i / plane, r = i - x * plane;
+            const int y = r / lz, z = r - y * lz;
+            // JAX promotes its int32 / int division to float32 and XLA
+            // evaluates it as a multiply by the float32 reciprocal; then
+            // the quotient widens to f64.  Match that value.
+            const double fx = static_cast<double>(
+                __fmul_rn(static_cast<float>(x + ox), rx));
+            const double fy = static_cast<double>(
+                __fmul_rn(static_cast<float>(y + oy), ry));
+            const double fz = static_cast<double>(
+                __fmul_rn(static_cast<float>(z + oz), rz));
+            const double px = fx * geo.g[81] + fy * geo.g[84] +
+                              fz * geo.g[87];
+            const double py = fx * geo.g[82] + fy * geo.g[85] +
+                              fz * geo.g[88];
+            const double pz = fx * geo.g[83] + fy * geo.g[86] +
+                              fz * geo.g[89];
+            const double ax = atoms[3 * l];
+            const double ay = atoms[3 * l + 1];
+            const double az = atoms[3 * l + 2];
 #pragma unroll
-        for (int s = 0; s < 27; ++s) {
-            const double tx = px - (ax + g[3 * s]);
-            const double ty = py - (ay + g[3 * s + 1]);
-            const double tz = pz - (az + g[3 * s + 2]);
-            const double d = tx * tx + ty * ty + tz * tz;
-            best = d < best ? d : best;
+            for (int s = 0; s < 27; ++s) {
+                const double tx = px - (ax + geo.g[3 * s]);
+                const double ty = py - (ay + geo.g[3 * s + 1]);
+                const double tz = pz - (az + geo.g[3 * s + 2]);
+                const double d = tx * tx + ty * ty + tz * tz;
+                best = d < best ? d : best;
+            }
         }
-        const unsigned long long bits =
-            static_cast<unsigned long long>(__double_as_longlong(best));
-        if (bits < d2[l]) atomicMin(&d2[l], bits);
+        __syncwarp();  // the entries are read: the queue may take more
+        if (live) {
+            const unsigned long long v =
+                static_cast<unsigned long long>(__double_as_longlong(best));
+            unsigned long long* slot = l < slots ? bmin + l : d2 + l;
+            if (v < *slot) atomicMin(slot, v);
+        }
+    };
+
+    // voxel offsets are 32-bit: the wrapper keeps grids below 2^31 voxels
+    const long long n = static_cast<long long>(lx) * ly * lz;
+    const bool vec = (reinterpret_cast<unsigned long long>(mask) & 15) == 0;
+    const long long spans = (n + kWarpSpan - 1) / kWarpSpan;
+    const long long stride = static_cast<long long>(gridDim.x) * kSurfWarps;
+    // this lane's first voxel in a span, and whether its 16 mask bytes
+    // come as one vector
+    const auto first_of = [&](long long span) {
+        return span * kWarpSpan + lane * 16;
+    };
+    const auto whole = [&](long long first) {
+        return vec && first + 16 <= n;
+    };
+    long long span = static_cast<long long>(blockIdx.x) * kSurfWarps + warp;
+    uint4 next = make_uint4(0u, 0u, 0u, 0u);
+    if (span < spans && whole(first_of(span)))
+        next = __ldcs(reinterpret_cast<const uint4*>(mask + first_of(span)));
+    int queued = 0;  // the warp's queue length (the same in every lane)
+    for (; span < spans; span += stride) {
+        const long long first = first_of(span);
+        const int i0 = static_cast<int>(first < n ? first : 0);
+        const uint4 cur = next;
+        const long long ahead = first_of(span + stride);
+        if (span + stride < spans && whole(ahead))
+            next = __ldcs(reinterpret_cast<const uint4*>(mask + ahead));
+        unsigned m = 0;
+        if (whole(first)) {
+            m = pb::byte_mask16<false>(cur);
+        } else {
+            for (int j = 0; j < 16 && first + j < n; ++j)
+                m |= static_cast<unsigned>(mask[i0 + j] != 0) << j;
+        }
+        if (!__any_sync(kFull, m != 0)) continue;
+        int lab[16];  // all loads issued before any is used
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+            lab[j] = (m >> j) & 1u ? __ldg(labels + i0 + j) : -1;
+        unsigned valid = 0;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+            valid |= static_cast<unsigned>(lab[j] >= 0 && lab[j] < num_atoms)
+                     << j;
+        const int count = __popc(valid);
+        int incl = count;  // inclusive scan of the lanes' counts
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int t = __shfl_up_sync(kFull, incl, o);
+            if (lane >= o) incl += t;
+        }
+        int pos = queued + incl - count;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+            if ((valid >> j) & 1u) queue[pos++] = i0 + j;
+        queued += __shfl_sync(kFull, incl, 31);
+        __syncwarp();
+        for (; queued >= 32; queued -= 32) evaluate(queued - 32, 32);
+    }
+    if (queued > 0) evaluate(0, queued);
+    __syncthreads();
+    for (int a = tid; a < slots; a += kSurfThreads) {
+        const unsigned long long v = bmin[a];
+        if (v < d2[a]) atomicMin(&d2[a], v);
     }
 }
 
@@ -667,6 +785,7 @@ PB_EXPORT int pb_charge_volume(void* rho, void* labels, void* charge,
     return static_cast<int>(cudaGetLastError());
 }
 
+// geo: the 90 doubles of Geometry in host memory.
 PB_EXPORT int pb_surface_min_d2(void* labels, void* mask, void* geo,
                                 void* atoms, void* d2, int lx, int ly, int lz,
                                 int ox, int oy, int oz, int nx, int ny, int nz,
@@ -674,13 +793,25 @@ PB_EXPORT int pb_surface_min_d2(void* labels, void* mask, void* geo,
     cudaSetDevice(device);
     cudaStream_t s = pb::as_stream(stream);
     unsigned long long* out = static_cast<unsigned long long*>(d2);
+    if (num_atoms <= 0) return 0;
+    Geometry g;
+    for (int k = 0; k < 90; ++k) g.g[k] = static_cast<const double*>(geo)[k];
     fill_u64_kernel<<<small_blocks(num_atoms), pb::kThreads, 0, s>>>(
-        out, num_atoms, 0x7ff0000000000000ull);
+        out, num_atoms, kInfBits);
     const long long n = static_cast<long long>(lx) * ly * lz;
-    surface_min_d2_kernel<<<pb::blocks_for(n, device), pb::kThreads, 0, s>>>(
+    const size_t smem = surface_smem(num_atoms);
+    const auto kernel = surface_min_d2_kernel;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    const long long warps = (n + kWarpSpan - 1) / kWarpSpan;
+    const long long want = (warps + kSurfWarps - 1) / kSurfWarps;
+    const int cap = pb::resident_blocks(kernel, kSurfThreads, smem, device);
+    const int blocks = static_cast<int>(want < cap ? want : cap);
+    if (blocks < 1) return static_cast<int>(cudaGetLastError());
+    kernel<<<blocks, kSurfThreads, smem, s>>>(
         static_cast<const int*>(labels),
         static_cast<const unsigned char*>(mask),
-        static_cast<const double*>(geo), static_cast<const double*>(atoms),
+        g, static_cast<const double*>(atoms),
         out, lx, ly, lz, ox, oy, oz, nx, ny, nz, num_atoms);
     return static_cast<int>(cudaGetLastError());
 }

@@ -626,8 +626,10 @@ class Bader:
             labels = self._dev(self.atoms_volumes, torch.int32)
             known = edges_ops.edge_find(
                 self._dev(self.reference, torch.float64), labels)
+            # the lattice stays on the host: the kernel takes it by value
             dist = atoms_ops.surface_distance_masked(
-                labels, known == -2, self._dev(self.lattice, torch.float64),
+                labels, known == -2,
+                torch.as_tensor(self.lattice, dtype=torch.float64),
                 self._dev(atoms, torch.float64), int(self.atoms.shape[0]),
             )
             self.atoms_surface_distance = dist.cpu().numpy()

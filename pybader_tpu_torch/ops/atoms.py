@@ -53,7 +53,8 @@ def surface_min_d2(labels: torch.Tensor, edge_mask: torch.Tensor,
     """(num_atoms,) f64 minimum squared distance from each atom to the edge
     voxels of its own volume over 27 periodic images; +inf where the atom
     has none.  ``labels``: int32 voxel -> atom map; ``atoms_cart`` already
-    shifted by -voxel_offset.  The grid may be one shard of a mesh: its
+    shifted by -voxel_offset; ``lattice`` on any device (the kernel reads
+    it from the host).  The grid may be one shard of a mesh: its
     voxels sit at ``origin`` of the grid ``shape`` (default: the grid
     itself), whose positions x / nx place them."""
     if shape is None:
@@ -73,9 +74,12 @@ def surface_min_d2_plain(labels, edge_mask, lattice, atoms_cart,
     nx, ny, nz = labels.shape if shape is None else shape
     ox, oy, oz = origin
     dev = labels.device
+    # the shifts from the lattice where the caller holds it: from a host
+    # lattice, the same values the kernel is given
+    shifts = _image_shifts(lattice).to(dev)
+    lattice = lattice.to(dev)
     lab_flat = labels.reshape(-1)
     edge_idx = torch.nonzero(edge_mask.reshape(-1)).reshape(-1)
-    shifts = _image_shifts(lattice)
     out = torch.full((num_atoms + 1,), float("inf"), dtype=torch.float64,
                      device=dev)
     for lo in range(0, edge_idx.shape[0], _EDGE_CHUNK):
@@ -96,13 +100,15 @@ def surface_min_d2_plain(labels, edge_mask, lattice, atoms_cart,
 
 def surface_min_d2_cuda(labels, edge_mask, lattice, atoms_cart,
                         num_atoms: int, origin=(0, 0, 0), shape=None):
-    """Launch ``pb_surface_min_d2`` (csrc/reduce.cu)."""
+    """Launch ``pb_surface_min_d2`` (csrc/reduce.cu).  The image shifts
+    and the lattice stay in host memory: the entry passes them to the
+    kernel by value."""
     _cuda.check(labels, torch.int32, "labels")
     _cuda.check(edge_mask, torch.bool, "edge_mask", labels.shape)
     if labels.dim() != 3:
         raise ValueError(f"labels: expected a 3-D grid, got "
                          f"{tuple(labels.shape)}")
-    lattice = lattice.to(device=labels.device, dtype=torch.float64)
+    lattice = torch.as_tensor(lattice, dtype=torch.float64).cpu()
     geo = torch.cat([_image_shifts(lattice).reshape(-1),
                      lattice.reshape(-1)]).contiguous()
     atoms = atoms_cart.to(device=labels.device,

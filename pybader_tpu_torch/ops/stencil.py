@@ -52,13 +52,13 @@ def ongrid_step_codes_plain(reference: torch.Tensor,
 
 def ongrid_step_codes_cuda(reference: torch.Tensor,
                            weights) -> torch.Tensor:
-    """Launch ``pb_ongrid_step_codes`` (csrc/stencil.cu)."""
+    """Launch ``pb_ongrid_step_codes`` (csrc/stencil.cu).  The weights
+    stay in host memory: the entry passes them to the kernel by value."""
     _cuda.check(reference, torch.float64, "reference")
     if reference.dim() != 3:
         raise ValueError(f"reference: expected a 3-D grid, got "
                          f"{tuple(reference.shape)}")
-    w = torch.as_tensor([float(v) for v in weights], dtype=torch.float64,
-                        device=reference.device)
+    w = torch.tensor([float(v) for v in weights], dtype=torch.float64)
     if w.numel() != len(OFFSETS):
         raise ValueError(f"weights: expected {len(OFFSETS)}, got {w.numel()}")
     codes = torch.empty(reference.shape, dtype=torch.uint8,

@@ -58,8 +58,7 @@ def sharded_min_surface_distance(mesh: Mesh, reference, atoms_volumes,
         known = crop(edge_find(r, b), lay, 2)
         own = lab.blocks[s]
         d2 = torch.minimum(d2, surface_min_d2(
-            own, known == -2,
-            torch.as_tensor(lattice, dtype=torch.float64, device=own.device),
+            own, known == -2, torch.as_tensor(lattice, dtype=torch.float64),
             torch.as_tensor(atoms_shifted, dtype=torch.float64,
                             device=own.device),
             num_atoms, lay.origin(s), lay.shape).cpu())

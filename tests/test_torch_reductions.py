@@ -250,6 +250,46 @@ def test_surface_distance_atom_without_edges_is_zero():
     assert got[1] == 0.0 and got[0] > 0.0
 
 
+@pytest.mark.parametrize("n_atoms", [64, 65])
+def test_surface_distance_many_atoms_and_outside_labels_match_jax(n_atoms):
+    # many atoms, with labels -1 and n_atoms (both outside [0, n_atoms))
+    # among the edge voxels: both are skipped
+    shape = (10, 12, 21)
+    labels, mask, lattice, atoms_cart = _surface_inputs(9, shape, n_atoms,
+                                                        p_edge=0.5)
+    rng = np.random.default_rng(10)
+    labels[rng.random(shape) < 0.1] = n_atoms
+    assert ((labels == -1) & mask).any() and ((labels == n_atoms) & mask).any()
+    got = _port_distance(labels, mask, lattice, atoms_cart, n_atoms)
+    want = np.asarray(ja.surface_distance_masked(
+        jnp.asarray(labels), jnp.asarray(mask), lattice, atoms_cart,
+        n_atoms))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0.0)
+    assert (got > 0).sum() > n_atoms // 2
+
+
+def test_surface_distance_of_a_shard_matches_jax():
+    # a mesh shard's voxels sit at a nonzero origin of the whole grid and
+    # take their positions from it (x / nx of the grid, in float32 as JAX
+    # computes it): the shard's edges alone, through the whole grid in JAX
+    shape, (ox, oy) = (12, 14, 10), (6, 7)
+    labels, mask, lattice, atoms_cart = _surface_inputs(11, shape, 7)
+    local = (slice(ox, None), slice(oy, None))
+    outside = np.ones(shape, bool)
+    outside[local] = False
+    want = np.asarray(ja.surface_distance_masked(
+        jnp.asarray(labels), jnp.asarray(mask & ~outside), lattice,
+        atoms_cart, 7))
+    d2 = ta.surface_min_d2(
+        torch.from_numpy(np.ascontiguousarray(labels[local])),
+        torch.from_numpy(np.ascontiguousarray(mask[local])),
+        torch.from_numpy(lattice), torch.from_numpy(atoms_cart), 7,
+        origin=(ox, oy, 0), shape=shape).numpy()
+    got = np.where(np.isfinite(d2), np.sqrt(d2), 0.0)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0.0)
+    assert np.isfinite(d2).sum() >= 5
+
+
 @pytest.mark.parametrize("name", ["min_pair", "remap_labels",
                                   "charge_volume", "surface_min_d2"])
 def test_kernel_wrappers_reject_cpu_tensors(name):

@@ -78,3 +78,43 @@ def test_kernel_wrapper_rejects_cpu_tensor():
     w = tuple(jgrid.distance_weights(LATTICE, SHAPE))
     with pytest.raises(ValueError, match="CUDA tensor"):
         ts.ongrid_step_codes_cuda(rho, w)
+
+
+@pytest.mark.parametrize("shape", [(9, 13, 37), (1, 5, 33), (2, 2, 40)])
+def test_step_codes_ragged_shapes_match_jax(shape):
+    # shapes the kernel's 8x32 column tiles and 64-plane marches cut
+    # raggedly; an axis of 1 or 2 wraps onto the voxel itself
+    got, want = _codes_both(make_density(6, shape))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_step_codes_negative_density_matches_jax():
+    rho = make_density(7)
+    rho = rho - rho.mean()
+    assert (rho < 0).mean() > 0.3
+    got, want = _codes_both(rho)
+    np.testing.assert_array_equal(got, want)
+
+
+def _hard_density(kind):
+    rng = np.random.default_rng(8)
+    if kind == "tie-heavy":
+        return np.round(make_density(2) * 4.0) / 4.0
+    if kind == "negative":
+        return np.round(make_density(3) * 8.0) / 8.0 - 1.0
+    rho = make_density(4)  # +inf, -inf and a plateau of each
+    rho[rng.random(SHAPE) < 0.05] = np.inf
+    rho[rng.random(SHAPE) < 0.05] = -np.inf
+    rho[2:4, 2:4, 2:4] = np.inf
+    rho[8:10, 8:10, 8:10] = -np.inf
+    return rho
+
+
+@pytest.mark.parametrize("kind", ["tie-heavy", "negative", "infinite"])
+def test_step_codes_hard_densities_match_jax(kind):
+    # ties at 1/4 and 1/8, a quantised negative field, and +-inf (whose
+    # differences give NaN, which fails every strict test)
+    with np.errstate(invalid="ignore"):
+        got, want = _codes_both(_hard_density(kind))
+    np.testing.assert_array_equal(got, want)
+    assert (got != 13).any()

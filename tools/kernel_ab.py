@@ -12,6 +12,14 @@ compare two checkouts in one command, in turns (old, new, new, old).
 Inputs, all made on the card from seeds: chip_smoke's 384^3 blob field and
 384^3 white noise (seed 2), each through ``partition_ongrid``;
 
+- ongrid_step_codes on each field (the blob field: the main path's
+  input) and on ``chip_smoke.stencil_inputs`` (ragged grids, axes of 1
+  and 2, negative and tie-heavy densities, the mesh's shard block);
+- surface_min_d2 on the surface stage's input (the blob field's atom
+  labels and their edges), on ``chip_smoke.noise_surface_inputs`` (the
+  noise field's atom labels, its basins as atoms) and on
+  ``chip_smoke.surface_inputs`` (five atoms that own no voxel, labels of
+  -1 and num_atoms, a hexagonal lattice, a mesh shard with its origin);
 - charge_volume on each field's labels (62 and about 2.1 M) and on the
   blob field's atom labels (60, ``chip_smoke.atom_labels_of``);
 - edge_find on each field's labels with the stencil's maxima (on the blob
@@ -37,7 +45,11 @@ Inputs, all made on the card from seeds: chip_smoke's 384^3 blob field and
   (the full-trajectory partition's walk; no stop set, the initial cap).
 
 Each kernel's output must equal its plain PyTorch version.  Times are CUDA
-events, the median of ``--reps``.  Prints one JSON line.
+events, the median of ``--reps``; for ongrid_step_codes and surface_min_d2
+also ``device_ms``, the device time of the call's kernels alone (from
+``torch.profiler``, the mean of ``--reps`` calls), which leaves out the
+wrapper's own host work and copies.  ``--only stencil,surface`` (prefixes of
+the case names) times those cases alone.  Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -64,13 +76,20 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=REPO)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="",
+                    help="comma-separated prefixes of the cases to time")
     args = ap.parse_args(argv)
+    only = tuple(p for p in args.only.split(",") if p)
+
+    def want(name):
+        return not only or name.startswith(only)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
 
     cs = load_chip_smoke()
     from pybader_tpu_torch import grid, pipeline
+    from pybader_tpu_torch.ops import atoms as atoms_ops
     from pybader_tpu_torch.ops import chase, edges, neargrid, pointer
     from pybader_tpu_torch.ops import reductions, stencil
     from pybader_tpu_torch.parallel import make_mesh
@@ -82,28 +101,74 @@ def main(argv=None):
     def timed(fn):
         return cs.time_ms(fn, args.reps)
 
+    def device_ms(fn):
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if not e.key.startswith(("Memcpy", "Memset")))
+        return us / 1e3 / args.reps
+
     def same(a, b, what):
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             raise AssertionError(f"{what}: kernel differs from plain")
 
+    def codes_case(name, density, weights):
+        if not want(name):
+            return
+        same((stencil.ongrid_step_codes_cuda(density, weights),),
+             (stencil.ongrid_step_codes_plain(density, weights),), name)
+        def call():
+            return stencil.ongrid_step_codes_cuda(density, weights)
+
+        out[name] = {"ms": timed(call), "device_ms": device_ms(call)}
+
+    def surface(name, labels, mask, atoms_t, k, origin=(0, 0, 0),
+                grid_shape=None, lattice=cs.LATTICE):
+        if not want(name):
+            return
+        lat = torch.as_tensor(lattice)  # on the host, as Bader has it
+        call = (labels, mask, lat, atoms_t, k, tuple(origin), grid_shape)
+        cs.close(1e-12)(atoms_ops.surface_min_d2_cuda(*call),
+                        atoms_ops.surface_min_d2_plain(
+                            labels, mask, lat.cuda(), *call[3:]))
+        def run():
+            return atoms_ops.surface_min_d2_cuda(*call)
+
+        out[name] = {"edges": int(mask.sum()), "atoms": k, "ms": timed(run),
+                     "device_ms": device_ms(run)}
+
     def roots(name, parent):
+        if not want(name):
+            return
         same((pointer.resolve_roots_cuda(parent),),
              (pointer.resolve_roots_plain(parent),), name)
         out[name] = {"ms": timed(lambda: pointer.resolve_roots_cuda(parent))}
 
     def sums(name, density, labels, k):
+        if not want(name):
+            return
         cs.close(1e-9)(reductions.charge_volume_cuda(density, labels, k),
                        reductions.charge_volume_plain(density, labels, k))
         out[name] = {"labels": k, "ms": timed(
             lambda: reductions.charge_volume_cuda(density, labels, k))}
 
     def find(name, labels, is_max):
+        if not want(name):
+            return
         same((edges.edge_find_cuda(labels, is_max),),
              (edges.edge_find_plain(labels, is_max),), name)
         out[name] = {"ms": timed(lambda: edges.edge_find_cuda(labels,
                                                               is_max))}
 
     def check(name, known, labels, is_max):
+        if not want(name):
+            return
         same((edges.edge_check_cuda(known, labels, is_max),),
              (edges.edge_check_plain(known, labels, is_max),), name)
         out[name] = {"edges": int((known == -2).sum()), "ms": timed(
@@ -116,6 +181,7 @@ def main(argv=None):
     noise = torch.rand(shape, dtype=torch.float64, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(2))
     for name, field in (("noise", noise), ("blob", rho)):
+        codes_case(f"stencil_{name}", field, w)
         codes = pipeline.step_codes(field, None, w)
         parent = stencil.parent_from_step_codes(codes)
         roots(f"roots_{name}", parent)
@@ -123,8 +189,18 @@ def main(argv=None):
         k = len(maxima)
         sums(f"charge_volume_{name}", field, labels, k)
         find(f"find_{name}", labels, codes == 13)
+        if name == "noise" and want("surface"):
+            for key, (_, lab, atoms_t) in zip(
+                    ("surface_noise", "surface_noise_basins"),
+                    cs.noise_surface_inputs(field, labels, maxima, atoms)):
+                surface(key, lab, edges.edge_find_plain(
+                    lab, edges.local_max(field, lab)) == -2, atoms_t,
+                    atoms_t.shape[0])
+            del lab
         table = torch.randperm(k, generator=gen, device="cuda").to(
             torch.int32)
+        if not want(f"remap_{name}"):
+            continue
         same((reductions.remap_labels_cuda(labels, table, k),),
              (reductions.remap_labels_plain(labels, table, k),), "remap")
         out[f"remap_{name}"] = {
@@ -140,7 +216,23 @@ def main(argv=None):
     atom = cs.atom_labels_of(labels, maxima, atoms)
     sums("charge_volume_atoms", rho, atom, len(atoms))
     find("find_surface", atom, edges.local_max(rho, atom))
-    del atom
+    atoms_t = torch.as_tensor(atoms, device="cuda")
+    edge = edges.edge_find_plain(atom, edges.local_max(rho, atom)) == -2
+    surface("surface_stage", atom, edge, atoms_t, len(atoms))
+    gen8 = torch.Generator(device="cuda").manual_seed(8)
+    for name, *case in cs.surface_inputs(atom, edge, atoms_t, gen8):
+        surface(f"surface_{name}", *case)
+    if want("stencil"):
+        for name, density, weights in cs.stencil_inputs(rho, shape):
+            codes_case(f"stencil_{name} "
+                       f"{'x'.join(map(str, density.shape))}", density,
+                       weights)
+        del density
+    del atom, edge
+    if only and not any(p.startswith(("roots", "walk", "check", "find",
+                                      "chase")) for p in only):
+        print(json.dumps(out), flush=True)
+        return
     for name, parent in cs.roots_inputs(shape, "cuda").items():
         roots(f"roots_{name.split()[-1]}", parent)
     del parent

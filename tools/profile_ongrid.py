@@ -14,9 +14,9 @@ then once under
 with the device time of the profiled run by kind: host<->device copies,
 each hand-written kernel of ``pybader_tpu_torch/csrc``, every other kernel,
 the share of the wall time in which the device was busy, and the sums of
-edge_check's, resolve_roots', charge_volume's and edge_find's kernels over
-their launches.  ``--trace``
-also writes the chrome trace.  ``--root`` profiles the port of another
+edge_check's, resolve_roots', charge_volume's, edge_find's,
+ongrid_step_codes' and surface_min_d2's kernels over their launches.
+``--trace`` also writes the chrome trace.  ``--root`` profiles the port of another
 checkout (unpacked with ``git archive``), with this script's kernel names,
 which include those of earlier designs.
 """
@@ -59,7 +59,9 @@ SUMS = {"edge_check": ("check_flags_kernel", "check_near_kernel",
         "charge_volume": ("zero_sums_kernel", "charge_volume_kernel",
                           "charge_volume_blocks_kernel"),
         "edge_find": ("find_flags_kernel", "find_known_kernel",
-                      "edge_find_kernel")}
+                      "edge_find_kernel"),
+        "ongrid_step_codes": ("ongrid_step_codes_kernel",),
+        "surface_min_d2": ("fill_u64_kernel", "surface_min_d2_kernel")}
 ONGRID = {"method": "ongrid", "refine_method": "ongrid"}
 
 
