@@ -11,6 +11,11 @@ Phases (one line of output each, or a few):
   3. field: a 384^3 f64 blob density (60 blobs, seed 1) made on the card
   4. kernel: each of the six ongrid-path kernels against its plain PyTorch
      version on the card, on the inputs the ongrid path gives it at 384^3;
+     min_pair (with two scatter_reduce_ calls as its library yardstick)
+     also at a ragged length, on label and mask views at storage offsets 1
+     and 3 (and 3 and 1), on labels -1 .. K, with a label change at every
+     voxel, with a dense mask and on labels spread over more than 4096
+     slots (global atomics);
      remap_labels also at a ragged length and at storage offsets 1 and 3;
      charge_volume also at a ragged length, on views at storage offsets,
      on labels outside [0, K), on labels spread over more than 512 slots
@@ -24,7 +29,9 @@ Phases (one line of output each, or a few):
      -1 and num_atoms among the edges, on a hexagonal lattice and on a
      mesh shard with its origin
   5. neargrid: the four refinement kernels at 384^3 on the same field:
-     edge_find on the ongrid labels, neargrid_rows for both gradient tests,
+     edge_find on the ongrid labels, neargrid_rows for both gradient tests
+     (bit for bit; also on the stencil's hard inputs: ragged grids, axes of
+     1 and 2, negative and tie-heavy densities, the mesh's shard block),
      neargrid_walk on iteration 1's full edge set (stop at known == 2, the
      refinement cap; with the build time of its stop bitmap, the occupancy
      its launch got and lane_steps / warp_steps, the share of lane-slots a
@@ -98,7 +105,9 @@ for their type: 132 SMs x 64 FP64 lanes x 1.98 GHz = 16.7e12 a second in
 f64, 132 x 128 FP32 lanes x 1.98 GHz = 33.5e12 in f32.  The data sheet's 34
 and 67 TFLOP/s count a fused multiply-add as two operations; the kernels
 build with -fmad=false, so every add, subtract and multiply counted is one
-instruction of its own.
+instruction of its own, and a correctly rounded f64 division counts the
+FP64 instructions of its fast path (DDIV_F64_OPS, from
+``tools/sass_count.py --ddiv``).
 ``library_ms`` times one PyTorch call that computes the same function where
 one exists; the port never calls it.
 
@@ -138,6 +147,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
 # count an FMA as two operations)
 F64_OPS_PER_S = 132 * 64 * 1.98e9
 F32_OPS_PER_S = 132 * 128 * 1.98e9
+# FP64 instructions of one __ddiv_rn's fast path on sm_90a, from
+# `python3 tools/sass_count.py --ddiv`
+DDIV_F64_OPS = 8
+# labels up to which min_pair folds into tables in shared memory
+# (csrc/reduce.cu kPairShared); above, global atomics
+PAIR_SHARED = 4096
+INT32_MAX = 2 ** 31 - 1
 # the variant calls: environment over the default profile
 VARIANTS = (
     {"PYBADER_TPU_HYBRID_INIT": "nginit", "PYBADER_TPU_QROWS": "internal",
@@ -343,11 +359,24 @@ def partition_kernels(rho, shape, res, phase="kernel"):
     rank = torch.cumsum(is_max.reshape(-1), 0) - 1
     flat = roots.reshape(-1).long()
     labels_mo = rank[flat].to(torch.int32).reshape(shape)
+    # every label is in [0, K) here, so two scatter_reduce_ calls on int64
+    # labels (built outside the timed call) compute the same pair
+    lab64 = labels_mo.reshape(-1).long()
+    iota = torch.arange(n, device=rho.device)
+    sel = is_max.reshape(-1)
+    mlab64, miota = lab64[sel], iota[sel]
+    amin = torch.full((n_max,), INT32_MAX, dtype=torch.int64,
+                      device=rho.device)
+    mamin = amin.clone()
     first, max_pos = compare(
         "min_pair", res,
         lambda: reductions.min_pair_cuda(labels_mo, is_max, n_max),
         lambda: reductions.min_pair_plain(labels_mo, is_max, n_max), equal,
-        phase, bound(5 * n + 8 * n_max))
+        phase, bound(5 * n + 8 * n_max),
+        library=lambda: (amin.scatter_reduce_(0, lab64, iota, "amin"),
+                         mamin.scatter_reduce_(0, mlab64, miota, "amin")))
+    del lab64, iota, mlab64, miota
+    min_pair_cases(labels_mo, is_max, n_max, phase)
     order = torch.argsort(first.long(), stable=True)
     table = torch.argsort(order, stable=True).to(torch.int32)
     labels = compare(
@@ -370,6 +399,41 @@ def partition_kernels(rho, shape, res, phase="kernel"):
     mf = max_pos[order].long()
     maxima = torch.stack([mf // (ny * nz), (mf // nz) % ny, mf % nz], 1)
     return labels, maxima, n_max, codes
+
+
+def min_pair_cases(labels, mask, k, phase):
+    """min_pair equal to its plain version where its scalar heads and
+    tails, its label filter, its run starts, its masked path and its
+    global atomics run: a length that is not a multiple of 4, label and
+    mask views at storage offsets 1 and 3 (and 3 and 1: the two phases
+    differ), labels -1 .. K (both ends outside [0, K)), a label change at
+    every voxel, a dense mask, and labels spread over more than
+    PAIR_SHARED slots; with the time of each."""
+    from pybader_tpu_torch.ops import reductions
+
+    lab, msk = labels.reshape(-1), mask.reshape(-1)
+    n = lab.numel()
+    kk = max(k, 2)
+    spread = -(-(PAIR_SHARED + 1) // k)
+    cases = {"ragged": (lab[:-3], msk[:-3], k),
+             "offsets 1 and 3": (lab[1:n - 2], msk[3:], k),
+             "offsets 3 and 1": (lab[3:], msk[1:n - 2], k),
+             "labels -1 .. K": (lab - 1, msk, max(k - 2, 1)),
+             "a change at every voxel": (
+                 (torch.arange(n, device=lab.device) % kk).to(torch.int32),
+                 msk, kk),
+             "a dense mask": (lab, torch.ones_like(msk), k)}
+    if spread > 1:
+        cases[f"labels x {spread} of {k * spread}"] = (lab * spread, msk,
+                                                       k * spread)
+    for name, (ll, mm, kk) in cases.items():
+        equal(reductions.min_pair_cuda(ll, mm, kk),
+              reductions.min_pair_plain(ll, mm, kk))
+        ms = time_ms(lambda: reductions.min_pair_cuda(ll, mm, kk))
+        say(phase, f"min_pair on {name} ({ll.numel()} voxels, {kk} labels, "
+            f"{int(mm.sum())} masked): equal to its plain version; "
+            f"{ms:.3f} ms, bound "
+            f"{bound(5 * ll.numel() + 8 * kk)['bound_ms']:.3f} ms")
 
 
 def roots_passes(parent, name, phase):
@@ -499,10 +563,12 @@ def atom_labels_of(labels, maxima, atoms_cart):
 
 
 def stencil_inputs(rho, shape):
-    """The stencil's hard inputs beside the blob field, as (name, density,
-    weights): ragged grids and axes of 1 and 2 (blob fields of their own),
-    the field shifted to negative values, a tie-heavy copy quantised to
-    1/8, and the mesh's 1-haloed block of shard 0 (make_mesh(4))."""
+    """The stencil's and the rows' hard inputs beside the blob field, as
+    (name, density, weights, t_grad): ragged grids and axes of 1 and 2
+    (blob fields of their own), the field shifted to negative values, a
+    tie-heavy copy quantised to 1/8, and the mesh's 1-haloed block of
+    shard 0 (make_mesh(4)), which takes the whole grid's weights and
+    t_grad (a host array)."""
     from pybader_tpu_torch import grid
     from pybader_tpu_torch.parallel import make_mesh
     from pybader_tpu_torch.parallel import mesh as pmesh
@@ -512,12 +578,14 @@ def stencil_inputs(rho, shape):
 
     for s in ((9, 13, 37), (1, 5, 33), (2, 2, 40), (37, 29, 45),
               (shape[0] - 3, shape[1] - 1, shape[2] + 1)):
-        yield "ragged", blob_field(s, rho.device)[0], weights(s)
-    yield "negative", rho - rho.mean(), weights(shape)
-    yield "tie-heavy", torch.round(rho * 8.0) / 8.0, weights(shape)
+        yield ("ragged", blob_field(s, rho.device)[0], weights(s),
+               grid.t_grad(LATTICE, s))
+    tg = grid.t_grad(LATTICE, shape)
+    yield "negative", rho - rho.mean(), weights(shape), tg
+    yield "tie-heavy", torch.round(rho * 8.0) / 8.0, weights(shape), tg
     lay = pmesh.Layout(make_mesh(MESH_SHARDS, device=DEVICE), shape)
     yield ("shard block", pmesh.halo(pmesh.shard(lay, rho), 1)[0]
-           .contiguous(), weights(shape))
+           .contiguous(), weights(shape), tg)
 
 
 def stencil_cost(n):
@@ -531,13 +599,40 @@ def stencil_cases(rho, shape, phase):
     :func:`stencil_inputs`, with the time of each."""
     from pybader_tpu_torch.ops import stencil
 
-    for name, dens, w in stencil_inputs(rho, shape):
+    for name, dens, w, _ in stencil_inputs(rho, shape):
         equal(stencil.ongrid_step_codes_cuda(dens, w),
               stencil.ongrid_step_codes_plain(dens, w))
         ms = time_ms(lambda: stencil.ongrid_step_codes_cuda(dens, w))
         say(phase, f"ongrid_step_codes on {name} {tuple(dens.shape)}: equal "
             f"to its plain version; {ms:.3f} ms, bound "
             f"{stencil_cost(dens.numel())['bound_ms']:.3f} ms")
+
+
+def rows_cost(n):
+    """neargrid_rows' bound: 8 + 1 bytes read and 32 written a voxel; 35
+    f64 operations (6 compares, 3 differences, 3 halvings, 9 products, 9
+    sums, 3 absolute values, 2 maxima) and three divisions of
+    DDIV_F64_OPS FP64 instructions each."""
+    return bound((8 + 1 + 32) * n, (35 + 3 * DDIV_F64_OPS) * n)
+
+
+def rows_cases(rho, shape, phase):
+    """neargrid_rows bit-equal to its plain version under both gradient
+    tests on :func:`stencil_inputs`, with the time of each."""
+    from pybader_tpu_torch.ops import neargrid, stencil
+
+    for name, dens, w, tg in stencil_inputs(rho, shape):
+        codes = stencil.ongrid_step_codes_cuda(dens, w)
+        for strict in (False, True):
+            bits_equal(neargrid.neargrid_rows_cuda(dens, codes, tg, strict),
+                       neargrid.neargrid_rows_plain(dens, codes, tg, strict))
+            ms = time_ms(lambda: neargrid.neargrid_rows_cuda(
+                dens, codes, tg, strict))
+            say(phase, f"neargrid_rows on {name} {tuple(dens.shape)}, "
+                f"strict_grad={strict}: bit-equal to its plain version; "
+                f"{ms:.3f} ms, bound "
+                f"{rows_cost(dens.numel())['bound_ms']:.3f} ms")
+        del codes
 
 
 def surface_cost(labels, mask, num_atoms):
@@ -672,7 +767,7 @@ def neargrid_phase(rho, shape, codes, labels, res):
     from pybader_tpu_torch.ops import edges, neargrid, pointer, stencil
 
     n = rho.numel()
-    tg = torch.as_tensor(grid.t_grad(LATTICE, shape), device=rho.device)
+    tg = grid.t_grad(LATTICE, shape)  # on the host, as the interface has it
     is_max = codes == 13
     known = compare(
         "edge_find", res, lambda: edges.edge_find_cuda(labels, is_max),
@@ -680,14 +775,13 @@ def neargrid_phase(rho, shape, codes, labels, res):
         "neargrid", find_cost(labels))
     find_case("refinement's input", labels, is_max, "neargrid")
     for strict in (False, True):
-        # 6 compares, 3 differences, 3 halvings, 9 products, 9 sums,
-        # 3 abs, 2 max, 3 divisions: 38 f64 operations
         rows = compare(
             "neargrid_rows", res,
             lambda: neargrid.neargrid_rows_cuda(rho, codes, tg, strict),
             lambda: neargrid.neargrid_rows_plain(rho, codes, tg, strict),
-            bits_equal, "neargrid", bound((8 + 1 + 32) * n, 38 * n))
+            bits_equal, "neargrid", rows_cost(n))
         say("neargrid", f"rows bit-identical with strict_grad={strict}")
+    rows_cases(rho, shape, "neargrid")
     starts = torch.nonzero(known.reshape(-1) == -2).reshape(-1).to(
         torch.int32)
     cap = neargrid.refine_cap(shape)
@@ -854,18 +948,21 @@ def qrows_phase(rho, shape, codes, labels, res):
     from pybader_tpu_torch.ops import block_walk, edges, neargrid, stencil
 
     n = rho.numel()
-    tg = torch.as_tensor(grid.t_grad(LATTICE, shape), device=rho.device)
-    # the rows' 38 f64 operations, then 3 roundings of 2 sums, 1 compare
+    tg_host = grid.t_grad(LATTICE, shape)
+    tg = torch.as_tensor(tg_host, device=rho.device)
+    # the rows' f64 operations (rows_cost), then 3 roundings of 2 sums,
+    # 1 compare
+    rows_ops = 35 + 3 * DDIV_F64_OPS
     compare("nginit_codes", res,
             lambda: stencil.neargrid_init_codes_cuda(rho, codes, tg),
             lambda: stencil.neargrid_init_codes_plain(rho, codes, tg), equal,
-            "qrows", bound((8 + 1 + 1) * n, 51 * n))
-    # the rows' 38 f64 operations and 3 scalings
+            "qrows", bound((8 + 1 + 1) * n, (rows_ops + 13) * n))
+    # the rows' f64 operations and 3 scalings
     qrows = compare(
         "neargrid_qrows", res,
         lambda: neargrid.neargrid_qrows_cuda(rho, codes, tg, True),
         lambda: neargrid.neargrid_qrows_plain(rho, codes, tg, True), equal,
-        "qrows", bound((8 + 1 + 8) * n, 41 * n))
+        "qrows", bound((8 + 1 + 8) * n, (rows_ops + 3) * n))
     known = edges.edge_find_cuda(labels, codes == 13)
     starts = torch.nonzero(known.reshape(-1) == -2).reshape(-1).to(
         torch.int32)
@@ -907,7 +1004,7 @@ def qrows_phase(rho, shape, codes, labels, res):
         f"touched")
     # the whole block phase and the screened walk it feeds, against the
     # exact walk the default path runs on the same edges
-    rows = neargrid.neargrid_rows_cuda(rho, codes, tg, True)
+    rows = neargrid.neargrid_rows_cuda(rho, codes, tg_host, True)
     exact_ms = time_ms(lambda: neargrid.neargrid_walk_cuda(
         rows, starts, shape, cap, known))
     with environ({"PYBADER_TPU_BLOCK_WALK": "1"}):
@@ -1279,7 +1376,7 @@ def full_phase():
     rho, _ = blob_field(shape, DEVICE)
     n = rho.numel()
     w = tuple(grid.distance_weights(LATTICE, shape))
-    tg = torch.as_tensor(grid.t_grad(LATTICE, shape), device=DEVICE)
+    tg = grid.t_grad(LATTICE, shape)
     codes = stencil.ongrid_step_codes_cuda(rho, w)
     rows = neargrid.neargrid_rows_cuda(rho, codes, tg, False)
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -1417,7 +1514,7 @@ def shard_walk_check(rho, shape, codes, labels, mesh, res):
     from pybader_tpu_torch.parallel.walk import gather, hand_off, shard_rows, \
         walk_sharded
 
-    tg = torch.as_tensor(grid.t_grad(LATTICE, shape), device=rho.device)
+    tg = grid.t_grad(LATTICE, shape)
     known = edges.edge_find_cuda(labels, codes == 13)
     starts = torch.nonzero(known.reshape(-1) == -2).reshape(-1).to(
         torch.int32)
@@ -1514,7 +1611,7 @@ def mesh_phase(rho, atoms_cart, shape, tmp, codes, plain_labels,
         raise AssertionError("mesh ongrid Bader differs from one device")
     say("mesh", f"Bader(method='ongrid')() on the mesh: {seconds:.3f} s, "
         f"volume maps equal one device's; launches {json.dumps(launches)}")
-    tg = torch.as_tensor(grid.t_grad(LATTICE, shape), device=rho.device)
+    tg = grid.t_grad(LATTICE, shape)
     labels_1, maxima_1 = pipeline.partition_ongrid(rho, None, w)
     labels_n, maxima_n = pipeline.partition_ongrid(rho, None, w, mesh=mesh)
     if not (torch.equal(labels_n.join(DEVICE), labels_1)

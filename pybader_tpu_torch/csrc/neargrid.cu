@@ -29,6 +29,7 @@
 
 #include "common.cuh"
 #include "grad.cuh"
+#include "march.cuh"
 #include "qwalk.cuh"
 #include "walk.cuh"
 
@@ -36,53 +37,167 @@ namespace {
 
 using pb::kMax;
 using pb::kOngrid;
-using pb::wrap;
 
 // ----------------------------------------------------------------- rows
-// Bound: device memory.  A voxel reads its density, six axis neighbours
-// (L1/L2 hits shared with the neighbouring threads) and its step code, and
-// writes a 32-byte row: 8 + 1 + 32 bytes a voxel from HBM.  One thread per
-// voxel, z fastest across a warp, so the loads and the row stores coalesce.
-__global__ void rows_kernel(const double* __restrict__ rho,
-                            const unsigned char* __restrict__ codes,
-                            const double* __restrict__ t_grad,
-                            double2* __restrict__ rows, int nx, int ny, int nz,
-                            int strict) {
-    __shared__ double t[9];
-    if (threadIdx.x < 9) t[threadIdx.x] = t_grad[threadIdx.x];
-    __syncthreads();
-    const long long n = static_cast<long long>(nx) * ny * nz;
-    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         i < n; i += stride) {
-        int x, y, z;
-        pb::unflatten(i, ny, nz, x, y, z);
-        double gd[3];
-        const double mg = pb::transformed_gradient(rho, i, x, y, z, nx, ny,
-                                                   nz, t, strict != 0, gd);
-        const double denom = mg > 0.0 ? mg : 1.0;
-        const int code = codes[i];
-        const int px = wrap(x + code / 9 - 1, nx);
-        const int py = wrap(y + (code / 3) % 3 - 1, ny);
-        const int pz = wrap(z + code % 3 - 1, nz);
-        const long long parent =
-            (static_cast<long long>(px) * ny + py) * nz + pz;
-        const long long flags =
-            (mg < 1e-14 ? kOngrid : 0) | (parent == i ? kMax : 0);
-        const long long word =
-            static_cast<long long>(static_cast<unsigned int>(parent)) |
-            (flags << 32);
-        rows[2 * i] = make_double2(__ddiv_rn(gd[0], denom),
-                                   __ddiv_rn(gd[1], denom));
-        rows[2 * i + 1] = make_double2(__ddiv_rn(gd[2], denom),
-                                       __longlong_as_double(word));
+// Bound: device memory.  A voxel reads its density and its step code and
+// writes a 32-byte row: 8 + 1 + 32 bytes a voxel from HBM, 0.693 ms at
+// 384^3 on 3.35 TB/s, of which the rows' stores alone are 0.54 ms.  The
+// FP64 work, 35 operations a voxel and three __ddiv_rn (each a reciprocal
+// seed and 8 FP64 instructions on its fast path, tools/sass_count.py
+// --ddiv), takes 0.200 ms at the card's FP64 rate.
+//
+// Design: the 2.5-D march of march.cuh over 4 x 32 columns of 32 planes,
+// so the density comes from HBM about once and a voxel's addressing is a
+// few 32-bit instructions.  Blocks of 128 threads, 8 an SM, and marches of
+// 32 planes keep many blocks independent and the last wave of them short
+// (2-3 % each against 8 x 32 columns and 64 planes, PERF.md).  A thread
+// keeps the centre and the four (y, z) axis neighbours of three planes in
+// registers (the x neighbours are the centres of the planes before and
+// after); the ongrid parent comes from a 27-entry table of steps and
+// compare wraps (no division or remainder a voxel).  A warp owns 32
+// consecutive voxels of a z-row, so its rows are 1 KB of consecutive
+// memory: each lane puts its row into the warp's slot of shared memory
+// (16-byte vectors, swizzled so that neither side has a bank conflict)
+// and the warp stores the 64 vectors with consecutive lanes on
+// consecutive vectors, streaming (evict-first): the rows (1.8 GB at
+// 384^3) never fit in the 50 MB L2, and stores with the default policy
+// took 6 % longer.  Two 16-byte stores a thread straight from registers
+// half-fill 32 sectors a warp instruction and took 45 % longer
+// (PERF.md).  The transform travels by value as a kernel parameter.
+constexpr int kRY = 4, kRZ = 32;  // a block's (y, z) column: a warp a y
+constexpr int kRX = 32;           // planes a block marches
+constexpr int kRBufs = 8;         // the ring: 7 planes in flight
+using RMarch = pb::March<kRY, kRZ, kRX, kRBufs>;
+constexpr int kRThreads = RMarch::kThreads;
+constexpr int kRWarps = kRThreads / 32;
+
+// The 3x3 gradient transform, row-major, passed by value.
+struct Grad {
+    double t[9];
+};
+
+// The density of a voxel and of its four (y, z) axis neighbours in one
+// plane.
+struct Cross {
+    double c, ym, yp, zm, zp;
+};
+
+__device__ __forceinline__ void load_cross(const double* s, Cross& p) {
+    constexpr int R = RMarch::kRow;
+    p.ym = s[1];
+    p.zm = s[R];
+    p.c = s[R + 1];
+    p.zp = s[R + 2];
+    p.yp = s[2 * R + 1];
+}
+
+// 16-byte vector v of a warp's 64 in its shared slot: lanes 8k .. 8k + 7
+// of a quarter-warp then meet 8 distinct banks both when lane l writes
+// vectors 2l and 2l + 1 and when it reads vectors l and l + 32.
+__device__ __forceinline__ int swizzle(int v) { return v ^ ((v >> 3) & 1); }
+
+// One plane of the march: the row of voxel i = (x, y, z), whose planes
+// x - 1, x, x + 1 are lo, mid, hi, into this warp's shared slot; then the
+// warp stores its first nvec vectors at row (its first row of plane x).
+template <bool kStrict>
+__device__ __forceinline__ void rows_step(
+        const Cross& lo, const Cross& mid, const Cross& hi, const Grad& g,
+        int code, const int* steps, int i, int x, int y, int z, int nx,
+        int ny, int nz, double2* slot, double2* row, int nvec) {
+    const int lane = threadIdx.x & 31;
+    const double ru[3] = {hi.c, mid.yp, mid.zp};
+    const double rd[3] = {lo.c, mid.ym, mid.zm};
+    double gd[3];
+    const double mg = pb::gradient_of(mid.c, ru, rd, g.t, kStrict, gd);
+    const double denom = mg > 0.0 ? mg : 1.0;
+    const int d = steps[code & 31];
+    int px = x + (d & 3) - 1;
+    int py = y + ((d >> 2) & 3) - 1;
+    int pz = z + (d >> 4) - 1;
+    px = px < 0 ? px + nx : (px >= nx ? px - nx : px);
+    py = py < 0 ? py + ny : (py >= ny ? py - ny : py);
+    pz = pz < 0 ? pz + nz : (pz >= nz ? pz - nz : pz);
+    const int parent = (px * ny + py) * nz + pz;
+    const long long flags =
+        (mg < 1e-14 ? kOngrid : 0) | (parent == i ? kMax : 0);
+    const long long word =
+        static_cast<long long>(static_cast<unsigned int>(parent)) |
+        (flags << 32);
+    slot[swizzle(2 * lane)] =
+        make_double2(__ddiv_rn(gd[0], denom), __ddiv_rn(gd[1], denom));
+    slot[swizzle(2 * lane + 1)] = make_double2(__ddiv_rn(gd[2], denom),
+                                               __longlong_as_double(word));
+    __syncwarp();
+#pragma unroll
+    for (int v = lane; v < 64; v += 32)
+        if (v < nvec) __stcs(row + v, slot[swizzle(v)]);
+}
+
+// codes: ongrid step codes, 0..26 (a code is read as code & 31, so no
+// byte reads outside the table of steps).
+template <bool kStrict>
+__global__ void __launch_bounds__(kRThreads, 8)
+    rows_march_kernel(const double* __restrict__ rho,
+                      const unsigned char* __restrict__ codes, const Grad g,
+                      double2* __restrict__ rows, int nx, int ny, int nz) {
+    __shared__ __align__(16) double ring[kRBufs][RMarch::kPlane];
+    __shared__ __align__(16) double2 slots[kRWarps][64];
+    // code -> (dx + 1) | (dy + 1) << 2 | (dz + 1) << 4
+    __shared__ int steps[32];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid < 32)
+        steps[tid] = tid < 27 ? tid / 9 | (tid / 3 % 3) << 2 | (tid % 3) << 4
+                              : 1 | 1 << 2 | 1 << 4;
+    RMarch m;
+    m.init(rho, ring, nx, ny, nz);
+    Cross a, c, e;
+    m.start();  // its barrier also publishes steps
+    load_cross(m.corner(0), a);
+    load_cross(m.corner(1), c);
+    load_cross(m.corner(2), e);
+    m.prime();
+    const int y = m.y0 + warp, z = m.z0 + lane;
+    const bool row_in = warp < min(kRY, ny - m.y0);
+    const int vz = min(kRZ, nz - m.z0);
+    const bool out = row_in && lane < vz;
+    // a warp outside the grid stores nothing; one inside stores its vz rows
+    const int nvec = row_in ? 2 * vz : 0;
+    int i = out ? (m.x0 * ny + y) * nz + z : 0;
+    double2* row =
+        rows + (row_in ? 2LL * ((m.x0 * ny + y) * nz + m.z0) : 0);
+    const unsigned char* cp = codes + i;
+    const long long step = 2LL * m.plane;
+    double2* slot = slots[warp];
+    int code = out ? __ldcs(cp) : 13;
+    int x = m.x0;
+    // the planes rotate through a, c, e: unrolled by 3, no register moves;
+    // each step fetches the next plane's code before its own arithmetic
+    for (int s = 0; s < m.vx; s += 3) {
+        int next = out && s + 1 < m.vx ? __ldcs(cp + m.plane) : 13;
+        rows_step<kStrict>(a, c, e, g, code, steps, i, x, y, z, nx, ny, nz,
+                           slot, row, nvec);
+        if (s + 1 >= m.vx) break;
+        cp += m.plane, i += m.plane, row += step, ++x, code = next;
+        m.advance(s + 3, [&](const double* p) { load_cross(p, a); });
+        next = out && s + 2 < m.vx ? __ldcs(cp + m.plane) : 13;
+        rows_step<kStrict>(c, e, a, g, code, steps, i, x, y, z, nx, ny, nz,
+                           slot, row, nvec);
+        if (s + 2 >= m.vx) break;
+        cp += m.plane, i += m.plane, row += step, ++x, code = next;
+        m.advance(s + 4, [&](const double* p) { load_cross(p, c); });
+        next = out && s + 3 < m.vx ? __ldcs(cp + m.plane) : 13;
+        rows_step<kStrict>(e, a, c, g, code, steps, i, x, y, z, nx, ny, nz,
+                           slot, row, nvec);
+        if (s + 3 >= m.vx) break;
+        cp += m.plane, i += m.plane, row += step, ++x, code = next;
+        m.advance(s + 5, [&](const double* p) { load_cross(p, e); });
     }
+    m.finish();
 }
 
 // ---------------------------------------------------------------- q-rows
-// Bound: device memory, as rows_kernel: 8 + 1 bytes read and 8 written a
-// voxel.  q_i = round(g_i * 262143) rounds half to even, as jnp.round.
+// Bound: device memory, as the exact rows: 8 + 1 bytes read and 8 written
+// a voxel.  q_i = round(g_i * 262143) rounds half to even, as jnp.round.
 __global__ void qrows_kernel(const double* __restrict__ rho,
                              const unsigned char* __restrict__ codes,
                              const double* __restrict__ t_grad,
@@ -367,17 +482,23 @@ void launch_walk_q(unsigned int blocks, void* stream, void* qrows,
 
 }  // namespace
 
+// t_grad: the nine doubles of the 3x3 transform in host memory, row-major.
 PB_EXPORT int pb_neargrid_rows(void* rho, void* codes, void* t_grad,
                                void* rows, int nx, int ny, int nz, int strict,
                                int device, void* stream) {
     cudaSetDevice(device);
-    const long long n = static_cast<long long>(nx) * ny * nz;
-    rows_kernel<<<pb::blocks_for(n, device), pb::kThreads, 0,
-                  pb::as_stream(stream)>>>(
+    Grad g;
+    for (int k = 0; k < 9; ++k)
+        g.t[k] = static_cast<const double*>(t_grad)[k];
+    // nx * ny * nz < 2^31
+    const int blocks = RMarch::blocks(nx, ny, nz);
+    if (blocks < 1) return static_cast<int>(cudaGetLastError());
+    const auto kernel = strict ? rows_march_kernel<true>
+                               : rows_march_kernel<false>;
+    kernel<<<blocks, kRThreads, 0, pb::as_stream(stream)>>>(
         static_cast<const double*>(rho),
-        static_cast<const unsigned char*>(codes),
-        static_cast<const double*>(t_grad), static_cast<double2*>(rows), nx,
-        ny, nz, strict);
+        static_cast<const unsigned char*>(codes), g,
+        static_cast<double2*>(rows), nx, ny, nz);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,22 +21,15 @@
 // compares with the running best take the same pipe.  So the integer
 // work of addressing must stay small beside it.
 //
-// Design (2.5-D blocking): a block owns a kSY x kSZ column of (y, z) and
-// marches kSX planes along x.  Each plane of the column and its periodic
-// 1-voxel halo, (kSY + 2) x (kSZ + 2) doubles, is staged into a ring of
-// kSBufs buffers in shared memory with cp.async, kSBufs - 1 planes ahead
-// of the plane being read.  The wrap of every halo cell is resolved once a
-// block (each thread keeps the in-plane offsets of the cells it stages)
-// and the planes' x wraps by a compare, so staging a plane costs one
-// multiply of address arithmetic.  A thread owns one (y, z) and keeps the
-// 3x3 neighbourhood of three planes in registers: a step reads the 9
-// cells of the newest plane from shared memory (a warp reads a row of 32
-// consecutive doubles, free of bank conflicts) and rotates the three
-// register planes by unrolling the march by 3.  The weights travel by
-// value as a kernel parameter, which the multiply reads from the constant
-// bank.  Coordinates are 32-bit (the wrapper keeps grids below 2^31
-// voxels).  A thread's codes run along x, ny * nz apart, so each leaves
-// as a byte; a warp's 32 codes are one 32-byte sector.
+// Design (2.5-D blocking, march.cuh): a block owns a kSY x kSZ column of
+// (y, z) and marches kSX planes along x through a ring of kSBufs staged
+// planes.  A thread keeps the 3x3 neighbourhood of three planes in
+// registers: a step reads the 9 cells of the newest plane from shared
+// memory (a warp reads a row of 32 consecutive doubles, free of bank
+// conflicts).  The weights travel by value as a kernel parameter, which
+// the multiply reads from the constant bank.  A thread's codes run along
+// x, ny * nz apart, so each leaves as a byte; a warp's 32 codes are one
+// 32-byte sector.
 //
 // No candidate is skipped.  One with rho[n] <= rho[p] can never win (w > 0
 // and monotone rounding put its value at or below rho[p] <= best; a NaN
@@ -48,79 +41,23 @@
 
 #include "common.cuh"
 #include "grad.cuh"
+#include "march.cuh"
 
 namespace {
 
-constexpr int kSY = 8, kSZ = 32;              // a block's (y, z) column
-constexpr int kSX = 64;                       // planes a block marches
-constexpr int kSRow = kSZ + 2;                // doubles a staged row
-constexpr int kSPlane = (kSY + 2) * kSRow;    // doubles a staged plane
-constexpr int kSBufs = 8;                     // the ring: 7 planes in flight
-constexpr int kSThreads = kSY * kSZ;          // one thread a (y, z)
-constexpr int kSStage = (kSPlane + kSThreads - 1) / kSThreads;
+constexpr int kSY = 8, kSZ = 32;  // a block's (y, z) column
+constexpr int kSX = 64;           // planes a block marches
+constexpr int kSBufs = 8;         // the ring: 7 planes in flight
+using SMarch = pb::March<kSY, kSZ, kSX, kSBufs>;
+constexpr int kSThreads = SMarch::kThreads;
 
-__device__ __forceinline__ void cp_async8(double* smem, const double* gmem) {
-    const unsigned s =
-        static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(gmem)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's newest copy groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The block's march: its column, its planes and the ring.
-struct March {
-    const double* rho;
-    double (*ring)[kSPlane];
-    int off[kSStage];  // in-plane offsets of the halo cells this thread
-                       // stages (-1: none)
-    int x0, vx, nx, plane;
-    int sx;  // the x of the next plane to stage, wrapped
-};
-
-// Stage plane j (x = x0 - 1 + j, wrapped) into ring[j % kSBufs]: one copy
-// group, empty past the last plane the march reads.  Planes are staged in
-// order, j = 0, 1, 2, ..., so x wraps by a compare.
-__device__ __forceinline__ void stage(March& m, int j) {
-    if (j <= m.vx + 1) {
-        const double* src = m.rho + m.sx * m.plane;
-        double* dst = m.ring[j % kSBufs];
-#pragma unroll
-        for (int s = 0; s < kSStage; ++s)
-            if (m.off[s] >= 0)
-                cp_async8(dst + threadIdx.x + s * kSThreads, src + m.off[s]);
-        m.sx = m.sx + 1 == m.nx ? 0 : m.sx + 1;
-    }
-    cp_async_commit();
-}
-
-// This thread's 3x3 (y, z) neighbourhood of plane j, from the ring.
-__device__ __forceinline__ void load(const March& m, int j, double* p) {
-    const double* s = m.ring[j % kSBufs] + (threadIdx.x / kSZ) * kSRow +
-                      threadIdx.x % kSZ;
+// This thread's 3x3 (y, z) neighbourhood of a staged plane.
+__device__ __forceinline__ void load9(const double* s, double* p) {
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-        for (int dz = 0; dz < 3; ++dz) p[dy * 3 + dz] = s[dy * kSRow + dz];
-}
-
-// Plane j into p once it has landed; then stage the plane kSBufs - 1
-// ahead into the buffer of plane j - 1, which every thread has read
-// before the barrier.
-__device__ __forceinline__ void advance(March& m, int j, double* p) {
-    cp_async_wait<kSBufs - 2>();
-    __syncthreads();
-    load(m, j, p);
-    stage(m, j + kSBufs - 1);
+        for (int dz = 0; dz < 3; ++dz)
+            p[dy * 3 + dz] = s[dy * SMarch::kRow + dz];
 }
 
 // The 27 weights, passed by value: a kernel parameter sits in the constant
@@ -156,60 +93,36 @@ __global__ void __launch_bounds__(kSThreads, 3)
     ongrid_step_codes_kernel(const double* __restrict__ rho, const Weights w,
                              unsigned char* __restrict__ codes, int nx,
                              int ny, int nz) {
-    __shared__ __align__(16) double ring[kSBufs][kSPlane];
+    __shared__ __align__(16) double ring[kSBufs][SMarch::kPlane];
     const int tid = threadIdx.x;
-    const int tiles_z = (nz + kSZ - 1) / kSZ;
-    const int tiles_y = (ny + kSY - 1) / kSY;
-    int b = blockIdx.x;
-    const int z0 = b % tiles_z * kSZ;
-    b /= tiles_z;
-    const int y0 = b % tiles_y * kSY;
-    March m;
-    m.rho = rho;
-    m.ring = ring;
-    m.x0 = b / tiles_y * kSX;
-    m.vx = min(kSX, nx - m.x0);
-    m.nx = nx;
-    m.plane = ny * nz;
-    m.sx = pb::mod_n(m.x0 - 1, nx);
-#pragma unroll
-    for (int s = 0; s < kSStage; ++s) {
-        const int e = tid + s * kSThreads;
-        m.off[s] = e < kSPlane ? pb::mod_n(y0 + e / kSRow - 1, ny) * nz +
-                                     pb::mod_n(z0 + e % kSRow - 1, nz)
-                               : -1;
-    }
-    stage(m, 0);
-    stage(m, 1);
-    stage(m, 2);
-    cp_async_wait<0>();
-    __syncthreads();
+    SMarch m;
+    m.init(rho, ring, nx, ny, nz);
     double a[9], c[9], e[9];
-    load(m, 0, a);
-    load(m, 1, c);
-    load(m, 2, e);
-    __syncthreads();  // planes 0-2 read: their buffers take the next ones
-    for (int j = 3; j < 2 + kSBufs; ++j) stage(m, j);
+    m.start();
+    load9(m.corner(0), a);
+    load9(m.corner(1), c);
+    load9(m.corner(2), e);
+    m.prime();
     const int ty = tid / kSZ, tz = tid % kSZ;
-    const bool out = ty < min(kSY, ny - y0) && tz < min(kSZ, nz - z0);
+    const bool out = ty < min(kSY, ny - m.y0) && tz < min(kSZ, nz - m.z0);
     unsigned char* dst =
-        codes + (out ? (m.x0 * ny + y0 + ty) * nz + z0 + tz : 0);
+        codes + (out ? (m.x0 * ny + m.y0 + ty) * nz + m.z0 + tz : 0);
     // the planes rotate through a, c, e: unrolled by 3, no register moves
     for (int s = 0; s < m.vx; s += 3) {
         int code = step_code(a, c, e, w);
         if (out) dst[s * m.plane] = static_cast<unsigned char>(code);
         if (s + 1 >= m.vx) break;
-        advance(m, s + 3, a);
+        m.advance(s + 3, [&](const double* p) { load9(p, a); });
         code = step_code(c, e, a, w);
         if (out) dst[(s + 1) * m.plane] = static_cast<unsigned char>(code);
         if (s + 2 >= m.vx) break;
-        advance(m, s + 4, c);
+        m.advance(s + 4, [&](const double* p) { load9(p, c); });
         code = step_code(e, a, c, w);
         if (out) dst[(s + 2) * m.plane] = static_cast<unsigned char>(code);
         if (s + 3 >= m.vx) break;
-        advance(m, s + 5, e);
+        m.advance(s + 5, [&](const double* p) { load9(p, e); });
     }
-    cp_async_wait<0>();  // no copy outlives the block
+    m.finish();
 }
 
 // The first step a neargrid trajectory at rest takes, kept where it strictly
@@ -274,9 +187,8 @@ PB_EXPORT int pb_ongrid_step_codes(void* rho, void* weights, void* codes,
     Weights w;
     for (int k = 0; k < 27; ++k)
         w.w[k] = static_cast<const double*>(weights)[k];
-    // one block a column and a run of kSX planes (nx * ny * nz < 2^31)
-    const int blocks = ((nz + kSZ - 1) / kSZ) * ((ny + kSY - 1) / kSY) *
-                       ((nx + kSX - 1) / kSX);
+    // nx * ny * nz < 2^31
+    const int blocks = SMarch::blocks(nx, ny, nz);
     ongrid_step_codes_kernel<<<blocks, kSThreads, 0,
                                pb::as_stream(stream)>>>(
         static_cast<const double*>(rho), w,

@@ -521,9 +521,10 @@ class Bader:
                 # state to refine_volumes, so a following 'changed' refine
                 # chains on instead of re-walking the full edge set
                 carry = {}
+                # T_grad stays on the host: the rows kernel takes it by
+                # value
                 labels, maxima = pipeline.partition_neargrid(
-                    reference, vacuum, weights,
-                    self._dev(self.T_grad, torch.float64),
+                    reference, vacuum, weights, self.T_grad,
                     progress=tick, carry_out=carry, mesh=self.mesh)
                 self._refine_carry = carry if carry else None
             else:
@@ -574,8 +575,7 @@ class Bader:
                 labels = self._dev(volumes, torch.int32)
             refined, _ = pipeline.refine_labels(
                 self.refine_method, self.refine_mode, reference, labels,
-                tuple(self.distance_weights),
-                self._dev(self.T_grad, torch.float64),
+                tuple(self.distance_weights), self.T_grad,
                 progress=tick, carry_in=carry, mesh=self.mesh,
             )
             np.copyto(volumes, _host(refined).astype(volumes.dtype))

@@ -32,7 +32,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("stencil.cu", "flood.cu", "reduce.cu", "edges.cu", "neargrid.cu",
            "block_walk.cu", "chase.cu")
-HEADERS = ("common.cuh", "grad.cuh", "qwalk.cuh", "jump.cuh", "walk.cuh")
+HEADERS = ("common.cuh", "grad.cuh", "march.cuh", "qwalk.cuh", "jump.cuh",
+           "walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # exact f64: no contraction of a*b+c into one rounding (stencil.cu)

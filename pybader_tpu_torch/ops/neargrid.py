@@ -77,7 +77,8 @@ def neargrid_rows(reference: torch.Tensor, codes: torch.Tensor, t_grad,
 
     ``codes``: the uint8 ascent step codes (vacuum already forced to 13),
     which give each voxel's ongrid parent.  ``t_grad``: the 3x3 gradient to
-    voxel-step transform.  ``strict_grad``: the flatness test of the
+    voxel-step transform (the kernel takes it from host memory: numpy or a
+    CPU tensor).  ``strict_grad``: the flatness test of the
     central difference, ``<`` (refinement) or ``<=`` (initial pass).  A
     CUDA tensor runs ``csrc/neargrid.cu``; a CPU tensor the plain version.
     """
@@ -105,14 +106,18 @@ def neargrid_rows_plain(reference, codes, t_grad, strict_grad: bool):
 
 
 def neargrid_rows_cuda(reference, codes, t_grad, strict_grad: bool):
-    """Launch ``pb_neargrid_rows`` (csrc/neargrid.cu)."""
+    """Launch ``pb_neargrid_rows`` (csrc/neargrid.cu).  ``t_grad`` stays in
+    host memory (a numpy array or a CPU tensor): the entry passes it to the
+    kernel by value."""
     _cuda.check(reference, torch.float64, "reference")
     if reference.dim() != 3:
         raise ValueError(f"reference: expected a 3-D grid, got "
                          f"{tuple(reference.shape)}")
     _cuda.check(codes, torch.uint8, "codes", reference.shape)
-    t = torch.as_tensor(t_grad, dtype=torch.float64).to(
-        reference.device).contiguous()
+    if torch.is_tensor(t_grad) and t_grad.device.type != "cpu":
+        raise ValueError(f"t_grad: expected a host array or a CPU tensor, "
+                         f"got a tensor on {t_grad.device}")
+    t = torch.as_tensor(t_grad, dtype=torch.float64).contiguous()
     if t.shape != (3, 3):
         raise ValueError(f"t_grad: expected (3, 3), got {tuple(t.shape)}")
     rows = torch.empty((reference.numel(), 4), dtype=torch.float64,

@@ -394,8 +394,9 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
     is 0.  ``stats['block_rounds']`` gets, per iteration, the live-lane
     counts after each block round of each walk.
 
-    ``reference``, ``labels`` and ``t_grad`` are tensors on one device
-    (``t_grad`` may also be numpy).  returns (labels, total_changed).
+    ``reference`` and ``labels`` are tensors on one device; ``t_grad`` is
+    a host array (numpy or a CPU tensor: the rows kernel takes it by
+    value).  returns (labels, total_changed).
 
     On a ``mesh`` of more than one shard the grids stay sharded
     (:func:`_refine_mesh`): exact rows only, no carry, no ``quantized``;

@@ -66,6 +66,30 @@ def test_rows_match_jax(strict_grad):
                                atol=1e-15)
 
 
+@pytest.mark.parametrize("shape", [(9, 13, 7), (1, 5, 11), (2, 2, 12),
+                                   (7, 2, 5)])
+@pytest.mark.parametrize("strict_grad", [False, True])
+def test_rows_match_jax_on_ragged_grids(shape, strict_grad):
+    """Ragged grids and axes of 1 and 2 (a neighbour wraps onto the voxel
+    itself or onto the other one), t_grad a numpy array as the pipeline
+    passes it."""
+    rho = make_density(11, shape)
+    w = tuple(jgrid.distance_weights(LATTICE, shape))
+    tg = jgrid.t_grad(LATTICE, shape)
+    parent, _ = jpipe._parent_and_codes(jnp.asarray(rho), None, w)
+    jr = np.asarray(jng.precompute_rows(jnp.asarray(rho), parent,
+                                        jnp.asarray(tg), strict_grad))
+    bk = tpipe.step_codes(torch.from_numpy(rho), None, w)
+    tr = tng.neargrid_rows_plain(torch.from_numpy(rho), bk, tg, strict_grad)
+    words = tr.view(torch.int32)[:, 6:]
+    np.testing.assert_array_equal(
+        words.numpy(), tng.rows_from_jax_rows(jr).view(torch.int32)[:, 6:]
+        .numpy())
+    assert (words[:, 1] & tng.MAX).sum() >= 1
+    np.testing.assert_allclose(tr[:, :3].numpy(), jr[:, :3], rtol=0,
+                               atol=1e-15)
+
+
 def test_rows_with_vacuum_flag_vacuum_as_maxima():
     rho = make_density(1)
     vac = rho <= np.quantile(rho, 0.3)

@@ -52,6 +52,47 @@ def test_min_pair_many_labels_matches_xla():
     np.testing.assert_array_equal(mm.numpy(), np.asarray(xmm))
 
 
+def min_pair_case(case, n=13000, k=23):
+    """Labels and mask of one min_pair case, made with numpy (seed 5):
+    basin-like sorted runs, a change at every voxel, runs at a ragged
+    length, or runs with labels -1, K and K + 5 among them; 1 % masked."""
+    rng = np.random.default_rng(5)
+    if case == "ragged":
+        n = 13001
+    lengths = rng.integers(1, 200, size=n)
+    lab = np.repeat(rng.integers(0, k, size=n), lengths)[:n]
+    if case == "every_voxel":
+        lab = np.arange(n) % k
+    if case == "outside":
+        lab = np.where(rng.random(n) < 0.05,
+                       rng.choice([-1, k, k + 5], size=n), lab)
+    return lab.astype(np.int32), rng.random(n) < 0.01, k
+
+
+@pytest.mark.parametrize("case", ["runs", "every_voxel", "ragged", "offsets",
+                                  "outside"])
+def test_min_pair_cases_match_pallas_and_xla(case):
+    """The run-start kernel's hard inputs, through the plain version;
+    "offsets" hands it label and mask views at storage offsets 1 and 3."""
+    lab, mask, k = min_pair_case(case)
+    lab_t, mask_t = torch.from_numpy(lab), torch.from_numpy(mask)
+    if case == "offsets":
+        lab_t = offset_view(lab)
+        buf = torch.zeros(mask.size + 3, dtype=torch.bool)
+        buf[3:] = mask_t
+        mask_t = buf[3:]
+        assert (lab_t.storage_offset(), mask_t.storage_offset()) == (1, 3)
+    mn, mm = tr.min_pair(lab_t, mask_t, k)
+    pmn, pmm = pr.min_pair(jnp.asarray(lab), jnp.asarray(mask), k,
+                           interpret=True)
+    xmn, xmm = jr.masked_min_pair(jnp.arange(lab.size, dtype=jnp.int32),
+                                  jnp.asarray(lab), jnp.asarray(mask), k)
+    for got, want in ((mn, pmn), (mm, pmm), (mn, xmn), (mm, xmm)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (mm.numpy() < np.iinfo(np.int32).max).sum() >= 5
+
+
 def offset_view(a: np.ndarray) -> torch.Tensor:
     """``a`` as a contiguous tensor view at storage offset 1."""
     buf = torch.empty(a.size + 1, dtype=torch.int32)

@@ -15,6 +15,14 @@ Inputs, all made on the card from seeds: chip_smoke's 384^3 blob field and
 - ongrid_step_codes on each field (the blob field: the main path's
   input) and on ``chip_smoke.stencil_inputs`` (ragged grids, axes of 1
   and 2, negative and tie-heavy densities, the mesh's shard block);
+- neargrid_rows on each field's step codes with ``strict_grad=True`` (the
+  blob field: the default call's input), t_grad from the host, with
+  PyTorch's fill of the same rows timed beside it;
+- min_pair on each field's basin labels in discovery order and maxima
+  (``labels_mo`` and ``is_max`` of chip_smoke's partition chain: 62 and
+  about 2.1 M labels; the blob field's is the default call's input);
+- nginit_codes and neargrid_qrows on the blob field (they share the
+  rows' gradient code), t_grad a device tensor as chip_smoke gives it;
 - surface_min_d2 on the surface stage's input (the blob field's atom
   labels and their edges), on ``chip_smoke.noise_surface_inputs`` (the
   noise field's atom labels, its basins as atoms) and on
@@ -44,12 +52,14 @@ Inputs, all made on the card from seeds: chip_smoke's 384^3 blob field and
 - at 256^3 the walks of chip_smoke's 2^20 random starts and of every voxel
   (the full-trajectory partition's walk; no stop set, the initial cap).
 
-Each kernel's output must equal its plain PyTorch version.  Times are CUDA
-events, the median of ``--reps``; for ongrid_step_codes and surface_min_d2
-also ``device_ms``, the device time of the call's kernels alone (from
-``torch.profiler``, the mean of ``--reps`` calls), which leaves out the
-wrapper's own host work and copies.  ``--only stencil,surface`` (prefixes of
-the case names) times those cases alone.  Prints one JSON line.
+Each kernel's output must equal its plain PyTorch version (the rows bit
+for bit).  Times are CUDA events, the median of ``--reps``; for
+ongrid_step_codes, surface_min_d2, neargrid_rows, min_pair, nginit_codes
+and neargrid_qrows also ``device_ms``, the device time of the call's
+kernels alone (from ``torch.profiler``, the mean of ``--reps`` calls),
+which leaves out the wrapper's own host work and copies.  ``--only
+stencil,surface`` (prefixes of the case names) times those cases alone.
+Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -143,6 +153,53 @@ def main(argv=None):
         out[name] = {"edges": int(mask.sum()), "atoms": k, "ms": timed(run),
                      "device_ms": device_ms(run)}
 
+    def rows(name, density, codes, t_grad, strict):
+        if not want(name):
+            return
+        got = neargrid.neargrid_rows_cuda(density, codes, t_grad, strict)
+        cs.bits_equal(got, neargrid.neargrid_rows_plain(density, codes,
+                                                        t_grad, strict))
+
+        def call():
+            return neargrid.neargrid_rows_cuda(density, codes, t_grad,
+                                               strict)
+
+        # zero_ms: PyTorch's fill of the same rows, a pure write stream of
+        # their bytes (32 of the 41 a voxel the kernel moves)
+        out[name] = {"ms": timed(call), "device_ms": device_ms(call),
+                     "zero_ms": timed(got.zero_)}
+        del got
+
+    def pair(name, labels, mask, k):
+        if not want(name):
+            return
+        same(reductions.min_pair_cuda(labels, mask, k),
+             reductions.min_pair_plain(labels, mask, k), name)
+
+        def call():
+            return reductions.min_pair_cuda(labels, mask, k)
+
+        out[name] = {"labels": k, "ms": timed(call),
+                     "device_ms": device_ms(call)}
+
+    def gradient_kernels(density, codes):
+        """nginit_codes and neargrid_qrows, t_grad a device tensor."""
+        tg = torch.as_tensor(grid.t_grad(cs.LATTICE, density.shape),
+                             device="cuda")
+        for name, kernel, plain in (
+                ("nginit_blob", lambda: stencil.neargrid_init_codes_cuda(
+                    density, codes, tg),
+                 lambda: stencil.neargrid_init_codes_plain(density, codes,
+                                                           tg)),
+                ("qrows_blob", lambda: neargrid.neargrid_qrows_cuda(
+                    density, codes, tg, True),
+                 lambda: neargrid.neargrid_qrows_plain(density, codes, tg,
+                                                       True))):
+            if not want(name):
+                continue
+            same((kernel(),), (plain(),), name)
+            out[name] = {"ms": timed(kernel), "device_ms": device_ms(kernel)}
+
     def roots(name, parent):
         if not want(name):
             return
@@ -183,8 +240,21 @@ def main(argv=None):
     for name, field in (("noise", noise), ("blob", rho)):
         codes_case(f"stencil_{name}", field, w)
         codes = pipeline.step_codes(field, None, w)
+        rows(f"rows_{name}", field, codes, grid.t_grad(cs.LATTICE, shape),
+             True)
+        if name == "blob":
+            gradient_kernels(field, codes)
         parent = stencil.parent_from_step_codes(codes)
         roots(f"roots_{name}", parent)
+        if want(f"min_pair_{name}"):
+            # the renumber stage's input, as chip_smoke.partition_kernels
+            # makes it
+            is_max = codes == 13
+            rank = torch.cumsum(is_max.reshape(-1), 0) - 1
+            root = pointer.resolve_roots_plain(parent).reshape(-1).long()
+            pair(f"min_pair_{name}", rank[root].to(torch.int32).reshape(shape),
+                 is_max, int(is_max.sum()))
+            del is_max, rank, root
         labels, maxima = pipeline.partition_ongrid(field, None, w)
         k = len(maxima)
         sums(f"charge_volume_{name}", field, labels, k)
@@ -223,7 +293,7 @@ def main(argv=None):
     for name, *case in cs.surface_inputs(atom, edge, atoms_t, gen8):
         surface(f"surface_{name}", *case)
     if want("stencil"):
-        for name, density, weights in cs.stencil_inputs(rho, shape):
+        for name, density, weights, _ in cs.stencil_inputs(rho, shape):
             codes_case(f"stencil_{name} "
                        f"{'x'.join(map(str, density.shape))}", density,
                        weights)
@@ -236,7 +306,7 @@ def main(argv=None):
     for name, parent in cs.roots_inputs(shape, "cuda").items():
         roots(f"roots_{name.split()[-1]}", parent)
     del parent
-    tg = torch.as_tensor(grid.t_grad(cs.LATTICE, shape), device="cuda")
+    tg = grid.t_grad(cs.LATTICE, shape)
     known = edges.edge_find_cuda(labels, codes == 13)
     rows = neargrid.neargrid_rows_cuda(rho, codes, tg, True)
     starts = torch.nonzero(known.reshape(-1) == -2).reshape(-1).to(
@@ -281,7 +351,7 @@ def main(argv=None):
     shape = (cs.FULL_SIZE,) * 3
     rho, _ = cs.blob_field(shape, "cuda")
     w = tuple(grid.distance_weights(cs.LATTICE, shape))
-    tg = torch.as_tensor(grid.t_grad(cs.LATTICE, shape), device="cuda")
+    tg = grid.t_grad(cs.LATTICE, shape)
     codes = pipeline.step_codes(rho, None, w)
     rows = neargrid.neargrid_rows_cuda(rho, codes, tg, False)
     cap = neargrid.initial_cap(shape)

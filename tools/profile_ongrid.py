@@ -15,7 +15,8 @@ with the device time of the profiled run by kind: host<->device copies,
 each hand-written kernel of ``pybader_tpu_torch/csrc``, every other kernel,
 the share of the wall time in which the device was busy, and the sums of
 edge_check's, resolve_roots', charge_volume's, edge_find's,
-ongrid_step_codes' and surface_min_d2's kernels over their launches.
+ongrid_step_codes', surface_min_d2's, neargrid_rows' and min_pair's
+kernels over their launches.
 ``--trace`` also writes the chrome trace.  ``--root`` profiles the port of another
 checkout (unpacked with ``git archive``), with this script's kernel names,
 which include those of earlier designs.
@@ -41,14 +42,18 @@ from pybader_tpu_torch.parallel import make_mesh  # noqa: E402
 
 # __global__ functions of csrc/*.cu, matched in the demangled kernel names
 # (check_flags/check_near: the edge_check design before edge_check_kernel;
-# find_flags/find_known: edge_find's before edge_find_kernel)
+# find_flags/find_known: edge_find's before edge_find_kernel; min_pair_kernel
+# and fill_int_kernel: min_pair's before min_pair_runs_kernel and
+# fill_pair_kernel; rows_kernel: neargrid_rows' before rows_march_kernel)
 HAND_WRITTEN = ("ongrid_step_codes_kernel", "jump_kernel", "min_pair_kernel",
+                "min_pair_runs_kernel", "fill_pair_kernel",
                 "remap_kernel", "charge_volume_kernel",
                 "charge_volume_blocks_kernel", "surface_min_d2_kernel",
                 "fill_int_kernel", "zero_sums_kernel", "fill_u64_kernel",
                 "find_flags_kernel", "find_known_kernel", "edge_find_kernel",
                 "check_flags_kernel", "check_near_kernel",
-                "edge_check_kernel", "tile_roots_kernel", "rows_kernel",
+                "edge_check_kernel", "tile_roots_kernel", "rows_march_kernel",
+                "qrows_kernel", "rows_kernel",
                 "walk_kernel", "pointer_kernel", "gather_kernel",
                 "walk_shard_kernel", "stop_bitmap_kernel")
 # kernels of one op, summed over its launches; on one device jump_kernel
@@ -61,7 +66,10 @@ SUMS = {"edge_check": ("check_flags_kernel", "check_near_kernel",
         "edge_find": ("find_flags_kernel", "find_known_kernel",
                       "edge_find_kernel"),
         "ongrid_step_codes": ("ongrid_step_codes_kernel",),
-        "surface_min_d2": ("fill_u64_kernel", "surface_min_d2_kernel")}
+        "surface_min_d2": ("fill_u64_kernel", "surface_min_d2_kernel"),
+        "neargrid_rows": ("rows_march_kernel", "rows_kernel"),
+        "min_pair": ("fill_int_kernel", "min_pair_kernel",
+                     "min_pair_runs_kernel", "fill_pair_kernel")}
 ONGRID = {"method": "ongrid", "refine_method": "ongrid"}
 
 
