@@ -91,7 +91,20 @@ Phases (one line of output each, or a few):
      launched, charge conserved) equal to the sequence it runs, on one
      device with the kernels: ongrid, the internal ('changed', 9) without
      carry, a fresh ('changed', 2)
- 14. full: at 256^3, neargrid_walk against its plain version on 2^20
+ 14. read: ``bader-read`` on the card.  The default call's 384^3 result is
+     pickled (seconds and bytes); ``bader_read -vac <the field's 25th
+     percentile> -a -v`` re-thresholds it (charge_volume launched at least
+     twice, 5-50 % of the voxels vacuum, charge conserved) and prints the
+     same text as with every op on its plain version on the card; ``-r``
+     then ``-a`` prints the table of before the recast; on the fixture's
+     pickle from the cli phase, exports (``-e``, with and without a
+     re-threshold), ``-d`` and ``-f -f -d`` under ``--device cuda`` and
+     ``--device cpu`` write byte-identical files and print the same text.
+     Then the object readers: a GPAW calculator stub around the 384^3 field
+     gives, with ``method='ongrid'``, the e2e phase's volume maps; a
+     pymatgen VolumetricData stub around the fixture runs the default
+     profile (charge conserved, golden charges)
+ 15. full: at 256^3, neargrid_walk against its plain version on 2^20
      random starts and on every voxel (the partition's walk, timed) with
      the initial cap, then the full-trajectory ``partition_neargrid``
      through the kernels (charge conserved)
@@ -120,12 +133,16 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
+from io import StringIO
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -1088,7 +1105,8 @@ def noise_phase(shape, atoms_cart, device="cuda"):
 def cli_phase(tmp):
     """The CLI on the fixture: -m ongrid (charge conserved) and the default
     profile (golden per-atom charges, volumes and maxima).  Each run writes
-    its -o dat text, then a pickle whose results() must equal it."""
+    its -o dat text, then a pickle whose results() must equal it; the
+    default profile's pickle stays in ``tmp`` as ``bader.p``."""
     from pybader_tpu_torch import entry_points
     from pybader_tpu_torch.grid import voxel_volume
 
@@ -1096,14 +1114,18 @@ def cli_phase(tmp):
         golden = json.load(f)
     # the CLI writes its config profile file; keep it in the temp dir
     entry_points.__config__ = os.path.join(tmp, "config.ini")
+    # a copy read by a relative name: the results' prefix is empty, so what
+    # bader-read exports from the pickle lands in its working directory
+    name = os.path.basename(FIXTURE)
+    shutil.copy(FIXTURE, os.path.join(tmp, name))
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
         for flags in (["-m", "ongrid"], []):
             t0 = time.perf_counter()
-            entry_points.bader([FIXTURE, *flags, "-o", "dat"])
+            entry_points.bader([name, *flags, "-o", "dat"])
             t_dat = time.perf_counter() - t0
-            entry_points.bader([FIXTURE, *flags])  # pickle output
+            entry_points.bader([name, *flags])  # pickle output
             with open("bader.p", "rb") as f:
                 b = pickle.load(f)
             with open("CHGCAR_fixture-atoms.dat") as f:
@@ -1364,6 +1386,223 @@ def variants_phase(rho, atoms_cart, tmp, default):
         for k in Q_KERNELS:
             total[k] += launches.get(k, 0)
     return total
+
+
+# stage times and the writers' progress-bar clocks, masked where two runs'
+# printed text is compared
+TIMES = re.compile(r"done in \d+\.\d+s|\d\d:\d\d")
+# bader-read runs on the fixture's pickle, each on a fresh copy under both
+# devices; 0.25 makes about a quarter of the fixture's voxels vacuum
+FIXTURE_READS = (["-e", "all_atoms"], ["-e", "all_volumes"],
+                 ["-vac", "0.25", "-e", "all_atoms"], ["-d"],
+                 ["-f", "-f", "-d"])
+
+
+def printed(fn, argv):
+    """Call ``fn(argv)`` and return (its stdout with times masked,
+    seconds)."""
+    out = StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        fn(argv)
+    torch.cuda.synchronize()
+    return TIMES.sub("-", out.getvalue()), time.perf_counter() - t0
+
+
+class FakeGPAWCalc:
+    """What io.gpaw.read_obj reads of a GPAW calculator (the stub of
+    tests/test_io_objects.py): one density, no spin."""
+
+    def __init__(self, rho, lattice, frac):
+        self._rho = rho
+        self._atoms = SimpleNamespace(
+            cell=lattice, get_scaled_positions=lambda: frac,
+            get_atomic_numbers=lambda: np.full(len(frac), 8))
+
+    def get_atoms(self):
+        return self._atoms
+
+    def get_spin_polarized(self):
+        return False
+
+    def get_all_electron_density(self, spin=None, gridrefinement=4):
+        return self._rho
+
+
+def fake_volumetric_data(total, lattice, frac, symbols):
+    """What io.pymatgen.read_obj reads of a pymatgen VolumetricData: the
+    density in file units (rho times the cell volume) and a structure."""
+    lat = SimpleNamespace(matrix=lattice,
+                          volume=abs(float(np.linalg.det(lattice))))
+    sites = [SimpleNamespace(specie=SimpleNamespace(symbol=s))
+             for s in symbols]
+    return SimpleNamespace(data={"total": total}, structure=SimpleNamespace(
+        lattice=lat, frac_coords=frac, sites=sites))
+
+
+def read_rethreshold(path, tol):
+    """bader-read -vac tol -a -v on the pickle through the kernels, then
+    with every op on its plain version on the card: the kernels' run must
+    launch charge_volume, make 5-50 % of the voxels vacuum and conserve
+    charge; both runs must print the same text."""
+    from pybader_tpu_torch import entry_points
+    from pybader_tpu_torch.ops import _cuda
+
+    argv = [path, "-vac", repr(tol), "-a", "-v"]
+    loaded = []
+    real_load = entry_points.load
+
+    def keep(f):  # the re-thresholded object, which -vac does not write
+        loaded.append(real_load(f))
+        return loaded[-1]
+
+    torch.cuda.synchronize()
+    _cuda.launches.clear()
+    with mock.patch.object(entry_points, "load", keep):
+        text, seconds = printed(entry_points.bader_read, argv)
+    launches = dict(_cuda.launches)
+    if launches.get("charge_volume", 0) < 2:
+        raise AssertionError(f"bader-read -vac launched charge_volume "
+                             f"{launches.get('charge_volume', 0)} times")
+    b = loaded.pop()
+    share = float(np.mean(b.atoms_volumes == -1))
+    if not 0.05 <= share <= 0.5:
+        raise AssertionError(f"vacuum share {share} outside 5-50 %")
+    total = float(b.density.sum()) * b.voxel_volume
+    atoms = float(np.sum(b.atoms_charge))
+    np.testing.assert_allclose(atoms + b.vacuum_charge, total, rtol=1e-9)
+    del b
+    with mock.patch.object(_cuda, "on_cuda", lambda t: False):
+        plain_text, plain_seconds = printed(entry_points.bader_read, argv)
+    if plain_text != text:
+        raise AssertionError("bader-read -vac prints other text than with "
+                             "the plain versions")
+    say("read", f"bader-read -vac {tol!r} -a -v: {seconds:.3f} s (plain "
+        f"versions on the card {plain_seconds:.3f} s), {share:.4f} of the "
+        f"voxels vacuum, atoms {atoms!r} + vacuum {total - atoms!r} "
+        f"conserve {total!r}; text equals the plain versions'; launches "
+        f"{json.dumps(launches)}")
+
+
+def read_fixture(tmp, pickled):
+    """bader-read's exports and density writes on the fixture's pickle,
+    each on a fresh copy, under --device cuda and --device cpu: the files
+    written byte-identical and the printed text equal."""
+    from pybader_tpu_torch import entry_points
+
+    cwd = os.getcwd()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        for i, flags in enumerate(FIXTURE_READS):
+            where = os.path.join(tmp, f"read_{device}_{i}")
+            os.makedirs(where)
+            shutil.copy(pickled, os.path.join(where, "bader.p"))
+            os.chdir(where)
+            try:
+                text, _ = printed(entry_points.bader_read,
+                                  ["bader.p", *flags, "--device", device])
+            finally:
+                os.chdir(cwd)
+            files = {}
+            for n in sorted(os.listdir(where)):
+                if n != "bader.p":
+                    with open(os.path.join(where, n), "rb") as f:
+                        files[n] = f.read()
+            runs[device, i] = text, files
+    count = 0
+    for i, flags in enumerate(FIXTURE_READS):
+        text, files = runs["cuda", i]
+        if not files:
+            raise AssertionError(f"bader-read {' '.join(flags)} wrote "
+                                 f"nothing")
+        if runs["cpu", i] != (text, files):
+            raise AssertionError(f"bader-read {' '.join(flags)} differs "
+                                 f"between --device cuda and cpu")
+        count += len(files)
+    say("read", f"fixture pickle: {', '.join(' '.join(f) for f in FIXTURE_READS)}"
+        f": {count} files byte-identical and the same text under --device "
+        f"cuda and cpu")
+
+
+def read_phase(default, rho, atoms_cart, tmp, plain_labels,
+               plain_atom_labels):
+    """bader-read on the card against a pickle of the default call's
+    384^3 result and the cli phase's fixture pickle, then the gpaw and
+    pymatgen object readers through Bader."""
+    from pybader_tpu_torch import entry_points
+    from pybader_tpu_torch.interface import Bader
+    from pybader_tpu_torch.io import cube, gpaw, pymatgen, vasp
+
+    fixture_pickle = os.path.join(tmp, "fixture.p")
+    os.replace(os.path.join(tmp, "bader.p"), fixture_pickle)
+    path = os.path.join(tmp, "bader.p")  # where default.to_file() writes
+    t0 = time.perf_counter()
+    default.to_file()
+    # the dat output cached the table: -vac then prints the cached table
+    # beside the new vacuum footer, as the JAX package does
+    say("read", f"pickled the {SIZE}^3 default result: "
+        f"{os.path.getsize(path)} bytes in {time.perf_counter() - t0:.3f} s "
+        f"(table cached: {default._dataframe is not None})")
+    try:
+        tol = float(rho.reshape(-1).kthvalue(rho.numel() // 4).values)
+        read_rethreshold(path, tol)
+        before, _ = printed(entry_points.bader_read, [path, "-a"])
+        _, seconds = printed(entry_points.bader_read, [path, "-r"])
+        after, _ = printed(entry_points.bader_read, [path, "-a"])
+        if after != before:
+            raise AssertionError("bader-read -a after -r prints another "
+                                 "table")
+        say("read", f"bader-read -r: {seconds:.3f} s; -a prints the same "
+            f"table after the recast")
+    finally:
+        os.remove(path)
+    read_fixture(tmp, fixture_pickle)
+
+    # a GPAW calculator around the 384^3 field: the e2e phase's volume maps
+    density = rho.cpu().numpy()
+    frac = atoms_cart / np.diag(LATTICE)
+    t0 = time.perf_counter()
+    b = Bader(*gpaw.read_obj(FakeGPAWCalc(density, LATTICE, frac)),
+              method="ongrid", refine_method="ongrid", output=None,
+              device=DEVICE)
+    b()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if (b.info["file_type"], b.info["write_function"]) != ("gpaw",
+                                                            cube.write):
+        raise AssertionError("gpaw-born result lacks the cube writer")
+    check_charge(b, density)
+    if not (np.array_equal(b.bader_volumes, plain_labels.cpu().numpy())
+            and np.array_equal(b.atoms_volumes,
+                               plain_atom_labels.cpu().numpy())):
+        raise AssertionError("gpaw-born volume maps differ from the e2e "
+                             "phase's")
+    say("read", f"Bader(*gpaw.read_obj(stub), method='ongrid')() at "
+        f"{SIZE}^3: {seconds:.3f} s, volume maps equal the e2e phase's "
+        f"(atoms bit-equal: {np.array_equal(b.atoms, atoms_cart)})")
+    del b
+
+    # a pymatgen VolumetricData around the fixture: the default profile
+    dens, lattice, atoms, info = vasp.read(FIXTURE)
+    symbols = [e for e, n in zip(info["elements"], info["element_nums"])
+               for _ in range(n)]
+    data = fake_volumetric_data(
+        dens["charge"] * abs(np.linalg.det(lattice)), lattice,
+        atoms @ np.linalg.inv(lattice), symbols)
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    t0 = time.perf_counter()
+    b = Bader(*pymatgen.read_obj(data), output=None, device=DEVICE)
+    b()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if b.info["write_function"] is not vasp.write:
+        raise AssertionError("pymatgen-born result lacks the VASP writer")
+    check_charge(b, b.charge)
+    golden_check(b, golden)
+    say("read", f"Bader(*pymatgen.read_obj(stub))() on the fixture "
+        f"{b.density.shape}, default profile: {seconds:.3f} s, charge "
+        f"conserved, golden charges and maxima")
 
 
 def full_phase():
@@ -1690,6 +1929,11 @@ def main():
                           plain_atom_labels, seconds, results)
         launches.update({k: mesh.get(k, 0)
                          for k in ("chase", "neargrid_walk_shard")})
+        t0 = time.perf_counter()
+        read_phase(default, rho, atoms_cart, tmp, plain_labels,
+                   plain_atom_labels)
+        say("read", f"phase {time.perf_counter() - t0:.1f} s")
+        del default
     del rho, codes, plain_labels, plain_atom_labels
     full_phase()
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -1,11 +1,14 @@
-"""Console entry point: ``bader`` for the PyTorch/CUDA port.
+"""Console entry points: ``bader`` and ``bader-read`` for the PyTorch/CUDA
+port.
 
-Port of :func:`pybader_tpu.entry_points.bader`: the same flags and
-config-profile handling, plus ``--device``.  Run it as
-``python -m pybader_tpu_torch.entry_points CHGCAR``.  The JAX
-CLI warms a compilation cache on its first run; the counterpart here is the
-kernel build, which happens at the first CUDA launch.  ``bader-read`` is
-not ported yet.
+Ports of :func:`pybader_tpu.entry_points.bader` and ``bader_read``: the same
+flags and config-profile handling, plus ``--device`` on both.  Run them as
+``python -m pybader_tpu_torch.entry_points CHGCAR`` (or the ``bader-torch``
+and ``bader-read-torch`` console scripts).  The JAX CLI warms a compilation
+cache on its first run; the counterpart here is the kernel build, which
+happens at the first CUDA launch.  ``bader-read`` reads this package's
+pickles; one written by the JAX package would import the JAX package to
+unpickle.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import sys
 from argparse import ArgumentParser
 from configparser import ConfigParser
 from inspect import getmembers, ismodule
+from pickle import dump, load
 from time import time
 
 import numpy as np
@@ -182,6 +186,85 @@ def bader(argv=None):
     else:
         bader_obj()
     print(f"\n  Total time taken {time() - t0:.3f}s\n")
+
+
+def bader_read(argv=None):
+    """Re-analysis tool for pickled Bader output."""
+    parser = ArgumentParser(
+        description="Tool for viewing the output of the bader program"
+    )
+    parser.add_argument('filename', nargs='?', default='bader.p',
+                        help="Path to pickled Bader output")
+    parser.add_argument('-a', '--atoms', action='store_true',
+                        help="Show Bader atom information")
+    parser.add_argument('-v', '--volume', action='store_true',
+                        help="Show Bader volume information")
+    parser.add_argument('-vac', '--vacuum-tol', nargs=1,
+                        help="Re-threshold vacuum: auto (1E-3) | float")
+    parser.add_argument('-e', '--export', nargs='+',
+                        help="Volumes/atoms to export")
+    parser.add_argument('-d', '--density-write', action='store_true',
+                        help="Write a copy of the original density file")
+    parser.add_argument('-f', '--fortran-format', action='count',
+                        help="Increase fortran-ness of outputs (0-2)")
+    parser.add_argument('-r', '--recast', action='store_true',
+                        help="Recast pickled class as a new class")
+    parser.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
+                        help="Where a re-threshold runs: cuda (hand-written "
+                             "kernels; the default) or cpu (plain PyTorch); "
+                             "the device stored in the pickle is ignored")
+    args = vars(parser.parse_args(argv))
+
+    with open(args['filename'], '+rb') as f:
+        bader_obj = load(f)
+    bader_obj.device = args['device']
+
+    if args.get('vacuum_tol') is not None:
+        vac_tol = _parse_vacuum(args['vacuum_tol'][0])
+        current = bader_obj.vacuum_tol if bader_obj.vacuum_tol is not None else 0
+        if vac_tol > current:
+            bader_obj.vacuum_tol = vac_tol
+            if hasattr(bader_obj, 'bader_volumes'):
+                bader_obj.volumes_init(volumes=bader_obj.bader_volumes)
+                bader_obj.sum_volumes(bader=True)
+            bader_obj.volumes_init(volumes=bader_obj.atoms_volumes)
+            bader_obj.atoms_volumes = bader_obj.bader_volumes
+            bader_obj.sum_volumes()
+        else:
+            print(f"  New vacuum_tol ({vac_tol}) is not larger than current"
+                  f" vacuum_tol ({bader_obj.vacuum_tol}).")
+    if args['fortran_format'] is not None:
+        bader_obj.fortran_format = args['fortran_format'] % 3
+    if args.get('export') is not None:
+        export_type, export = _parse_export(args['export'])
+        bader_obj.export_mode = (export_type, export)
+        bader_obj.prefix = ''
+        print(f"  Writing Bader {export_type} to file:")
+        count = (
+            bader_obj.bader_maxima.shape[0] if export_type == 'volumes'
+            else bader_obj.atoms.shape[0]
+        )
+        if export[0] == -2:
+            for vol_num in range(count):
+                bader_obj.write_volume(vol_num)
+            if bader_obj.vacuum_tol is not None:
+                bader_obj.write_volume(-1)
+        else:
+            for vol_num in export:
+                bader_obj.write_volume(vol_num)
+    if args['volume']:
+        if hasattr(bader_obj, 'bader_volumes'):
+            print(bader_obj.results(volume_flag=True))
+        else:
+            print(f"  No Bader volume information in {args['filename']}.")
+    if args['density_write']:
+        bader_obj.write_density()
+    if args['atoms']:
+        print(bader_obj.results())
+    if args['recast']:
+        new_bader = Bader.from_dict(bader_obj.as_dict, device=args['device'])
+        with open(args['filename'], '+wb') as f:
+            dump(new_bader, f)
 
 
 def config_writer(quiet=False):

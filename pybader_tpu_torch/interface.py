@@ -10,8 +10,6 @@ With ``Bader.mesh`` set to a mesh of more than one shard
 (:func:`pybader_tpu_torch.parallel.make_mesh`), the partition, refinement,
 relabel, sums and surface distance run sharded over it, and the mesh's
 devices decide where.
-
-Not ported yet (ROADMAP Queue 1): the gpaw and pymatgen readers.
 """
 from __future__ import annotations
 
@@ -41,7 +39,8 @@ from pybader_tpu_torch.utils import dtype_calc
 
 # This package's writer for each file type a reader records, swapped into
 # file_info by Bader.from_dict (a JAX-package dict carries the JAX writer).
-_WRITERS = {"VASP": io.vasp.write, "cube": io.cube.write}
+_WRITERS = {"VASP": io.vasp.write, "cube": io.cube.write,
+            "gpaw": io.cube.write, "pymatgen object": io.vasp.write}
 
 
 def _host(grid) -> np.ndarray:
@@ -234,8 +233,8 @@ class Bader:
         package's or the JAX package's (numpy arrays either way).
 
         ``file_info['write_function']`` is replaced by this package's
-        writer for the file type (dropped where none is ported), so a
-        dict from the JAX package carries none of its functions over.
+        writer for the file type, so a dict from the JAX package carries
+        none of its functions over.
         ``kwargs`` (e.g. ``device``) go to the constructor.
         """
         d = dict(d)

@@ -1,6 +1,5 @@
 """The PyTorch port never imports jax (neither does chip_smoke.py), and
-its public names cover the JAX package's but for the modules not ported
-yet."""
+its public names cover every one of the JAX package's."""
 import importlib
 import os
 import re
@@ -51,14 +50,9 @@ def test_port_sources_have_no_jax_import():
     assert not offenders, offenders
 
 
-# JAX-package names the port does not have yet: the gpaw and pymatgen readers
-# and the bader-read CLI (with the pickle functions only it uses), and jax
-# itself
-NOT_PORTED = {
-    "io": {"gpaw", "pymatgen"},
-    "interface": {"jnp"},
-    "entry_points": {"bader_read", "dump", "load"},
-}
+# The one JAX-package name the port does not have: jax.numpy itself.  Every
+# other public name of grid, utils, io, interface and entry_points is covered
+NOT_PORTED = {"interface": {"jnp"}}
 
 
 @pytest.mark.parametrize("module", ["grid", "utils", "io", "interface",

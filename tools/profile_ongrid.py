@@ -3,20 +3,24 @@
 Run from the repository root on a machine with one CUDA GPU:
 
     python3 tools/profile_ongrid.py [--size 384] [--warm 3] [--default]
-                                    [--mesh N] [--trace PATH] [--root DIR]
+                                    [--mesh N] [--env NAME=VALUE ...]
+                                    [--trace PATH] [--root DIR]
 
 It builds chip_smoke's blob density at ``--size``^3, runs
 ``Bader(method='ongrid')()`` (with ``--default``: ``Bader()()``, the default
 profile; with ``--mesh N``: on N shards of the card,
-``make_mesh(N, device="cuda")``) on the card ``--warm`` times unprofiled,
-then once under
+``make_mesh(N, device="cuda")``; with ``--env``: under those environment
+variables, e.g. chip_smoke's VARIANTS) on the card ``--warm`` times
+unprofiled, then once under
 ``torch.profiler``, and prints the wall time of each run and one JSON line
 with the device time of the profiled run by kind: host<->device copies,
 each hand-written kernel of ``pybader_tpu_torch/csrc``, every other kernel,
-the share of the wall time in which the device was busy, and the sums of
-edge_check's, resolve_roots', charge_volume's, edge_find's,
-ongrid_step_codes', surface_min_d2's, neargrid_rows' and min_pair's
-kernels over their launches.
+the share of the wall time in which the device was busy, the sums of each
+op's kernels over their launches (``sums_ms``: edge_check, resolve_roots,
+charge_volume, edge_find, ongrid_step_codes, surface_min_d2,
+neargrid_rows, min_pair, and the off-path chase, neargrid_walk_shard,
+block_walk, nginit_codes, neargrid_qrows and neargrid_walk_q) and the
+profiled run's launches by wrapper (``launches``).
 ``--trace`` also writes the chrome trace.  ``--root`` profiles the port of another
 checkout (unpacked with ``git archive``), with this script's kernel names,
 which include those of earlier designs.
@@ -44,8 +48,12 @@ from pybader_tpu_torch.parallel import make_mesh  # noqa: E402
 # (check_flags/check_near: the edge_check design before edge_check_kernel;
 # find_flags/find_known: edge_find's before edge_find_kernel; min_pair_kernel
 # and fill_int_kernel: min_pair's before min_pair_runs_kernel and
-# fill_pair_kernel; rows_kernel: neargrid_rows' before rows_march_kernel)
-HAND_WRITTEN = ("ongrid_step_codes_kernel", "jump_kernel", "min_pair_kernel",
+# fill_pair_kernel; rows_kernel: neargrid_rows' before rows_march_kernel).
+# The first name a kernel contains wins: block_walk_kernel before
+# walk_kernel
+HAND_WRITTEN = ("ongrid_step_codes_kernel", "nginit_codes_kernel",
+                "block_walk_kernel", "walk_q_kernel",
+                "jump_kernel", "min_pair_kernel",
                 "min_pair_runs_kernel", "fill_pair_kernel",
                 "remap_kernel", "charge_volume_kernel",
                 "charge_volume_blocks_kernel", "surface_min_d2_kernel",
@@ -57,7 +65,8 @@ HAND_WRITTEN = ("ongrid_step_codes_kernel", "jump_kernel", "min_pair_kernel",
                 "walk_kernel", "pointer_kernel", "gather_kernel",
                 "walk_shard_kernel", "stop_bitmap_kernel")
 # kernels of one op, summed over its launches; on one device jump_kernel
-# runs only in the roots (the chase runs on a mesh)
+# runs only in the roots, on a mesh only in the chase (the mesh floods with
+# the chase)
 SUMS = {"edge_check": ("check_flags_kernel", "check_near_kernel",
                        "edge_check_kernel"),
         "resolve_roots": ("jump_kernel", "tile_roots_kernel"),
@@ -69,7 +78,13 @@ SUMS = {"edge_check": ("check_flags_kernel", "check_near_kernel",
         "surface_min_d2": ("fill_u64_kernel", "surface_min_d2_kernel"),
         "neargrid_rows": ("rows_march_kernel", "rows_kernel"),
         "min_pair": ("fill_int_kernel", "min_pair_kernel",
-                     "min_pair_runs_kernel", "fill_pair_kernel")}
+                     "min_pair_runs_kernel", "fill_pair_kernel"),
+        "chase": ("pointer_kernel", "jump_kernel", "gather_kernel"),
+        "neargrid_walk_shard": ("walk_shard_kernel",),
+        "block_walk": ("block_walk_kernel",),
+        "nginit_codes": ("nginit_codes_kernel",),
+        "neargrid_qrows": ("qrows_kernel",),
+        "neargrid_walk_q": ("walk_q_kernel",)}
 ONGRID = {"method": "ongrid", "refine_method": "ongrid"}
 
 
@@ -136,6 +151,9 @@ def main(argv=None):
                     help="profile the default profile instead of ongrid")
     ap.add_argument("--mesh", type=int, default=0,
                     help="run on a mesh of this many shards of the card")
+    ap.add_argument("--env", action="append", default=[],
+                    metavar="NAME=VALUE",
+                    help="run the calls under this environment variable")
     ap.add_argument("--trace", help="write the chrome trace to this path")
     ap.add_argument("--root", help="the checkout whose port is profiled "
                     "(read at import)")
@@ -146,25 +164,33 @@ def main(argv=None):
     chip_smoke.card()
     from torch.profiler import ProfilerActivity, profile
 
+    from pybader_tpu_torch.ops import _cuda
+
+    env = dict(e.split("=", 1) for e in args.env)
+    if env:
+        print(f"environment {json.dumps(env)}", flush=True)
+
     shape = (args.size,) * 3
     rho, atoms = chip_smoke.blob_field(shape, "cuda")
     density = rho.cpu().numpy()
     del rho
     torch.cuda.empty_cache()
     mesh = make_mesh(args.mesh, device="cuda") if args.mesh else None
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, chip_smoke.environ(env):
         for i in range(args.warm):
             wall, stages = timed_call(density, atoms, tmp, config, mesh)
             print(f"warm {i}: {wall:.3f} s {json.dumps(stages)}", flush=True)
+        _cuda.launches.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall, stages = timed_call(density, atoms, tmp, config, mesh)
+        launches = dict(_cuda.launches)
     print(f"profiled: {wall:.3f} s {json.dumps(stages)}", flush=True)
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
                     exist_ok=True)
         prof.export_chrome_trace(args.trace)
-    print(json.dumps(breakdown(prof, wall)))
+    print(json.dumps({**breakdown(prof, wall), "launches": launches}))
 
 
 if __name__ == "__main__":
