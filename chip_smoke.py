@@ -33,7 +33,8 @@ Phases (one line of output each, or a few):
      (bit for bit; also on the stencil's hard inputs: ragged grids, axes of
      1 and 2, negative and tie-heavy densities, the mesh's shard block),
      neargrid_walk on iteration 1's full edge set (stop at known == 2, the
-     refinement cap; with the build time of its stop bitmap, the occupancy
+     refinement cap; with its stop bitmap against its plain version, the
+     bitmap's build time, the occupancy
      its launch got and lane_steps / warp_steps, the share of lane-slots a
      one-thread-a-lane launch would keep busy) and edge_check on the known
      grid after that iteration (dense), then on 0.6 M of its edges sampled
@@ -79,18 +80,24 @@ Phases (one line of output each, or a few):
      its quantised-row kernels, conserve charge and equal the same call with
      every op on its plain version on the card
  13. mesh: ``make_mesh(4, device="cuda")``, 2x2 shards of 192x192x384 on the
-     one card: the chase against its plain version on shard 0's padded
-     194x194x384 block of the mesh's first chase round (frozen ring, halo
-     from the neighbours; the flood seed and the one-step parents);
-     neargrid_walk_shard against its plain version on shard 0's lanes of
-     iteration 1's edges and on the lanes handed off after every shard's
-     first round, resumed on their new owners, and the owner-computes walk
-     of all the edges equal to neargrid_walk; ``Bader(method='ongrid')()``, the
+     one card: on shard 0's padded 194x194x384 block of the mesh's first
+     chase round (frozen ring, halo from the neighbours), chase_roots on
+     its codes, chase_gather of the flood seed at those roots (cropped as
+     the round writes it) and the whole chase (the flood seed and the
+     one-step parents) against their plain versions; sharded_chase of the
+     flood seed against the per-round loop of the roll-select chase (the
+     same values in the same number of rounds); the shards' stop bitmaps,
+     then neargrid_walk_shard against its plain version on shard 0's lanes
+     of iteration 1's edges (with its launch's occupancy and lane_steps /
+     warp_steps), on the same lanes at a cap of 3 and on the lanes handed
+     off after every shard's first round, resumed on their new owners, and
+     the owner-computes walk of all the edges equal to neargrid_walk;
+     ``Bader(method='ongrid')()``, the
      partition and a ('changed', 2) refinement on the mesh equal to one
-     device's; the default ``Bader()`` on the mesh (its ten kernels
-     launched, charge conserved) equal to the sequence it runs, on one
-     device with the kernels: ongrid, the internal ('changed', 9) without
-     carry, a fresh ('changed', 2)
+     device's; the default ``Bader()`` on the mesh (its kernels launched,
+     charge conserved) equal to the sequence it runs, on one device with
+     the kernels: ongrid, the internal ('changed', 9) without carry, a
+     fresh ('changed', 2)
  14. read: ``bader-read`` on the card.  The default call's 384^3 result is
      pickled (seconds and bytes); ``bader_read -vac <the field's 25th
      percentile> -a -v`` re-thresholds it (charge_volume launched at least
@@ -210,21 +217,34 @@ KERNELS = {
                         "pybader_tpu/ops/neargrid.py:238"),
     "block_walk": ("pybader_tpu_torch/csrc/block_walk.cu",
                    "pybader_tpu/ops/block_walk.py:299"),
-    # the chase (Pallas kernel 9) and the mesh's resumable shard walker
+    # the chase (Pallas kernel 9) as a whole and its two kernels, the mesh's
+    # resumable shard walker, and the walkers' stop bitmap (JAX bakes the
+    # stop set into the rows, update_stop)
     "chase": ("pybader_tpu_torch/csrc/chase.cu",
               "pybader_tpu/ops/pallas_chase.py:293"),
+    "chase_roots": ("pybader_tpu_torch/csrc/chase.cu",
+                    "pybader_tpu/ops/pallas_chase.py:293"),
+    "chase_gather": ("pybader_tpu_torch/csrc/chase.cu",
+                     "pybader_tpu/ops/pallas_chase.py:293"),
     "neargrid_walk_shard": ("pybader_tpu_torch/csrc/neargrid.cu",
                             "pybader_tpu/parallel/walk.py:68"),
+    "stop_bitmap": ("pybader_tpu_torch/csrc/neargrid.cu",
+                    "pybader_tpu/ops/neargrid.py:531"),
 }
 ONGRID_KERNELS = tuple(KERNELS)[:6]
 DEFAULT_KERNELS = tuple(KERNELS)[:10]
 Q_KERNELS = tuple(KERNELS)[10:14]
 # what the default Bader() launches on a mesh: the ongrid path's kernels but
 # the roots (the mesh floods with the chase), the refinement kernels but the
-# single-device walker, and the two mesh kernels
-MESH_KERNELS = ("chase", "neargrid_walk_shard", "neargrid_rows",
-                "ongrid_step_codes", "edge_find", "edge_check", "min_pair",
-                "remap_labels", "charge_volume", "surface_min_d2")
+# single-device walker, and the mesh kernels: the chase's two and the shard
+# walker with its stop bitmaps
+MESH_KERNELS = ("chase_roots", "chase_gather", "neargrid_walk_shard",
+                "stop_bitmap", "neargrid_rows", "ongrid_step_codes",
+                "edge_find", "edge_check", "min_pair", "remap_labels",
+                "charge_volume", "surface_min_d2")
+# the table's launches of the mesh kernels come from the mesh default call;
+# the chase's row counts its two kernels' launches
+MESH_ROWS = ("chase_roots", "chase_gather", "neargrid_walk_shard")
 MESH_SHARDS = 4
 
 
@@ -808,8 +828,11 @@ def neargrid_phase(rho, shape, codes, labels, res):
         lambda: neargrid.neargrid_walk_cuda(rows, starts, shape, cap, known),
         lambda: neargrid.neargrid_walk_plain(rows, starts, shape, cap, known),
         equal, "neargrid", cost)
-    equal(neargrid.stop_bitmap_cuda(known), neargrid.stop_bitmap_plain(known))
-    bitmap_ms = time_ms(lambda: neargrid.stop_bitmap_cuda(known))
+    # the known grid read once, the bitmap written once
+    compare("stop_bitmap", res, lambda: neargrid.stop_bitmap_cuda(known),
+            lambda: neargrid.stop_bitmap_plain(known), equal, "neargrid",
+            bound(n + 4 * -(-n // 32)))
+    bitmap_ms = res["stop_bitmap"]["ms"]
     occ = neargrid.walk_occupancy(rho.device)
     say("neargrid", f"neargrid_walk {res['neargrid_walk']['ms']:.3f} ms, of "
         f"which the stop bitmap's build {bitmap_ms:.3f} ms (equal to its "
@@ -938,10 +961,12 @@ def edge_check_cases(rho, is_max, gen):
 
 
 def state_equal(a, b):
-    """Identical walk states, f32 fields bit for bit."""
+    """Identical walk states, float fields bit for bit."""
     for x, y in zip(a, b):
         if x.dtype == torch.float32:
             x, y = x.view(torch.int32), y.view(torch.int32)
+        elif x.dtype == torch.float64:
+            x, y = x.view(torch.int64), y.view(torch.int64)
         if not torch.equal(x, y):
             raise AssertionError("kernel and plain walk states differ")
 
@@ -1722,31 +1747,92 @@ def mesh_chase_inputs(rho, shape, mesh, weights):
 
 
 def mesh_chase_check(rho, shape, mesh, weights, res):
-    """The chase kernel against its plain version on
-    :func:`mesh_chase_inputs`: the flood seed (the table's row) and the
-    one-step parents."""
+    """The chase's two kernels, each against its plain version, on
+    :func:`mesh_chase_inputs` (shard 0's pinned padded block: the roots of
+    its codes, the gather of the flood seed at them, cropped as the mesh
+    round writes it), then the whole chase against the roll-select chase
+    on the flood seed (the table's row) and the one-step parents; then
+    ``sharded_chase`` of the flood seed against the per-round loop of the
+    roll-select chase: the same values in the same number of rounds."""
     from pybader_tpu_torch.ops import chase
+    from pybader_tpu_torch.parallel import mesh as pmesh
+    from pybader_tpu_torch.parallel import sharded
+    from pybader_tpu_torch.parallel.chase import pin_codes, sharded_chase
 
     codes, values, parents, n_max = mesh_chase_inputs(rho, shape, mesh,
                                                       weights)
-    # read 1 byte of code and 4 of value, write 4: the jump passes' pointer
-    # scratch is the kernel's own traffic, not the function's
+    n = codes.numel()
+    lay = pmesh.Layout(mesh, shape)
+    pads = tuple(int(a in lay.pads) for a in (0, 1))
+    inner = lay.local_shape[0] * lay.local_shape[1] * shape[2]
+    # read 1 byte of code, write 4 of root: the jump passes' reads are the
+    # kernel's own traffic, not the function's
+    root = compare("chase_roots", res, lambda: chase.chase_roots_cuda(codes),
+                   lambda: chase.chase_roots_plain(codes), equal, "mesh",
+                   bound(5 * n))
+    stats = {}
+    chase.chase_roots_cuda(codes, stats)
+    # read the padded values and the interior's roots, write the interior
+    compare("chase_gather", res,
+            lambda: chase.chase_gather_cuda(values, root, pads),
+            lambda: chase.chase_gather_plain(values, root, pads), equal,
+            "mesh", bound(4 * n + 8 * inner))
+    # read 1 byte of code and 4 of value, write 4
     compare("chase", res, lambda: chase.chase_cuda(values, codes),
             lambda: chase.chase_plain(values, codes), chase_same, "mesh",
-            bound(9 * values.numel()), plain_reps=1)
+            bound(9 * n), plain_reps=1)
     chase_same(chase.chase_cuda(parents, codes),
                chase.chase_plain(parents, codes))
-    say("mesh", f"chase equals chase_plain on shard 0's padded "
-        f"{tuple(codes.shape)} block of the first round ({n_max} maxima "
-        f"seeded, and the one-step parents)")
+    say("mesh", f"chase_roots ({stats['passes']} jump passes after the tile "
+        f"pass), chase_gather and the chase equal their plain versions on "
+        f"shard 0's padded {tuple(codes.shape)} block of the first round "
+        f"({n_max} maxima seeded, and the one-step parents)")
+    bk = sharded.step_codes(pmesh.shard(lay, rho), weights)
+    seed = sharded._seed_local(bk, None)[0]
+    t0 = time.perf_counter()
+    st = {}
+    got = sharded_chase(mesh, seed, bk, stats=st)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # the per-round loop of the roll-select chase, as the mesh ran it
+    # before the roots were resolved once a call
+    vals, pinned, rounds = seed, pin_codes(bk), 0
+    t0 = time.perf_counter()
+    while True:
+        rounds += 1
+        blocks, changed = [], 0
+        for padded, c in zip(pmesh.halo(vals, 1), pinned):
+            out, k = chase.chase_plain(padded.contiguous(), c)
+            blocks.append(pmesh.crop(out, lay, 1))
+            changed += k
+        vals = pmesh.Sharded(lay, blocks)
+        if not changed:
+            break
+    plain_seconds = time.perf_counter() - t0
+    if st["rounds"] != rounds or not all(
+            torch.equal(a, b) for a, b in zip(got.blocks, vals.blocks)):
+        raise AssertionError("sharded_chase differs from the per-round "
+                             "plain loop")
+    say("mesh", f"sharded_chase of the flood seed equals the per-round "
+        f"roll-select loop in {rounds} rounds ({seconds:.3f} s; the plain "
+        f"loop {plain_seconds:.1f} s)")
+
+
+def shard_walk_cost(st, lanes):
+    """The least time of one shard-walker launch: the rows its lanes touch
+    (32 bytes each) and each lane's 48-byte state read and written, over
+    the memory rate, against 15 f64 operations a lane-step."""
+    return bound(st["rows_touched"] * 32 + 2 * 48 * lanes,
+                 15 * st["lane_steps"])
 
 
 def shard_walk_check(rho, shape, codes, labels, mesh, res):
     """neargrid_walk_shard against its plain version on the lanes of
-    iteration 1's edges that shard 0 owns (the table's row) and on the
-    lanes every shard hands off after its first round, resumed on their
-    new owners; then the whole owner-computes walk of all the edges against
-    the single-device walker."""
+    iteration 1's edges that shard 0 owns (the table's row), on the same
+    lanes at a cap of 3, and on the lanes every shard hands off after its
+    first round, resumed on their new owners, with the shards' stop
+    bitmaps equal to their plain versions; then the whole owner-computes
+    walk of all the edges against the single-device walker."""
     from pybader_tpu_torch import grid
     from pybader_tpu_torch.ops import edges, neargrid
     from pybader_tpu_torch.parallel import mesh as pmesh
@@ -1762,33 +1848,46 @@ def shard_walk_check(rho, shape, codes, labels, mesh, res):
     rows = shard_rows(pmesh.shard(lay, rho), pmesh.shard(lay, codes), tg,
                       True)
     stop = pmesh.shard(lay, known == 2)
+    bits = [neargrid.stop_bitmap_cuda(b, 1) for b in stop.blocks]
+    for b, s_ in zip(bits, stop.blocks):
+        equal(b, neargrid.stop_bitmap_plain(s_, 1))
     state = neargrid.shard_state(starts[lay.owner(starts) == 0])
-    args = (rows[0], stop.blocks[0], state, lay.origin(0)[:2],
-            lay.local_shape, shape, cap)
+    args = (rows[0], bits[0], state, lay.origin(0)[:2], lay.local_shape,
+            shape, cap)
     st = {}
     neargrid.neargrid_walk_shard_plain(*args, stats=st)
     k = state[0].numel()
-    # the rows and stop bytes the lanes touch, each lane's 48-byte state
-    # read and written and its status written, 15 f64 operations a step
-    cost = bound(st["rows_touched"] * 33 + 97 * k, 15 * st["lane_steps"])
+
     def flat(out):
         return (*out[0], out[1])
 
+    kept = tuple(a.clone() for a in state)
     out = compare(
         "neargrid_walk_shard", res,
         lambda: flat(neargrid.neargrid_walk_shard_cuda(*args)),
         lambda: flat(neargrid.neargrid_walk_shard_plain(*args)),
-        state_equal, "mesh", cost)
+        state_equal, "mesh", shard_walk_cost(st, k))
+    state_equal(state, kept)  # the input state is left as it was
     status = out[-1]
+    occ = neargrid.walk_occupancy(rho.device, shard=True)
     say("mesh", f"shard 0 of {lay.local_shape}: {k} of {starts.numel()} "
-        f"edges, {st['lane_steps']} lane-steps, ended done/cap/off-shard "
-        f"{[int((status == c).sum()) for c in (1, 2, 0)]}")
+        f"edges, {st['lane_steps']} lane-steps (longest {st['longest']}), "
+        f"ended done/cap/off-shard "
+        f"{[int((status == c).sum()) for c in (1, 2, 0)]}; the launch got "
+        f"{occ['blocks_per_sm']} blocks of {occ['threads']} threads a SM on "
+        f"{occ['sms']} SMs ({occ['registers']} registers, "
+        f"{occ['spill_bytes']} spill bytes a thread); lane_steps / "
+        f"warp_steps {st['lane_steps']} / {st['warp_steps']} = "
+        f"{st['lane_steps'] / st['warp_steps']:.4f}")
+    capped = (*args[:-1], 3)
+    state_equal(flat(neargrid.neargrid_walk_shard_cuda(*capped)),
+                flat(neargrid.neargrid_walk_shard_plain(*capped)))
     # round 1 on every shard, then the lanes that left their shard resumed
     # on their new owner (steps, dr and history carried over)
     moving = [[] for _ in lay.ids]
     for s in range(len(lay.ids)):
         new, status = neargrid.neargrid_walk_shard_cuda(
-            rows[s], stop.blocks[s],
+            rows[s], bits[s],
             neargrid.shard_state(starts[lay.owner(starts) == s]),
             lay.origin(s)[:2], lay.local_shape, shape, cap)
         go = status == 0
@@ -1798,16 +1897,16 @@ def shard_walk_check(rho, shape, codes, labels, mesh, res):
     for t, parts in enumerate(moving):
         if parts:
             _, state_t = gather(parts)
-            args_t = (rows[t], stop.blocks[t], state_t, lay.origin(t)[:2],
+            args_t = (rows[t], bits[t], state_t, lay.origin(t)[:2],
                       lay.local_shape, shape, cap)
             state_equal(flat(neargrid.neargrid_walk_shard_cuda(*args_t)),
                         flat(neargrid.neargrid_walk_shard_plain(*args_t)))
             resumed.append(state_t[0].numel())
     if not resumed:
         raise AssertionError("no lane left its shard in round 1")
-    say("mesh", f"neargrid_walk_shard equals its plain version on the "
-        f"{sum(resumed)} lanes handed off in round 1, resumed on their new "
-        f"owners ({resumed} a shard)")
+    say("mesh", f"neargrid_walk_shard equals its plain version at a cap of "
+        f"3 and on the {sum(resumed)} lanes handed off in round 1, resumed "
+        f"on their new owners ({resumed} a shard)")
     full = neargrid.neargrid_rows_cuda(rho, codes, tg, True)
     pos_1, done_1 = neargrid.neargrid_walk_cuda(full, starts, shape, cap,
                                                 known)
@@ -1927,8 +2026,9 @@ def main():
         launches.update(variants_phase(rho, atoms_cart, tmp, default))
         mesh = mesh_phase(rho, atoms_cart, shape, tmp, codes, plain_labels,
                           plain_atom_labels, seconds, results)
-        launches.update({k: mesh.get(k, 0)
-                         for k in ("chase", "neargrid_walk_shard")})
+        launches.update({k: mesh.get(k, 0) for k in MESH_ROWS})
+        launches["chase"] = launches["chase_roots"] + \
+            launches["chase_gather"]
         t0 = time.perf_counter()
         read_phase(default, rho, atoms_cart, tmp, plain_labels,
                    plain_atom_labels)

@@ -65,6 +65,27 @@ __device__ __forceinline__ unsigned byte_mask16(uint4 v) {
     return m;
 }
 
+// n / d for 0 <= n < 2**31 and 2 <= d < 2**31, with magic = ceil(2**64 / d):
+// exact, since n * (magic * d - 2**64) < 2**64 (no integer division).
+__device__ __forceinline__ int div_magic(int n, unsigned long long magic) {
+    return static_cast<int>(
+        __umul64hi(static_cast<unsigned long long>(n), magic));
+}
+
+// Division of 0 <= n < 2**31 by a divisor fixed on the host: a 64-bit high
+// multiply in place of the integer division's dozens of instructions.
+struct Divisor {
+    int d;
+    unsigned long long magic;
+
+    static Divisor of(int d) {
+        return Divisor{d, d < 2 ? 0ull : ~0ull / d + 1};
+    }
+    __device__ __forceinline__ int div(int n) const {
+        return d == 1 ? n : div_magic(n, magic);
+    }
+};
+
 // Flat voxel index -> (x, y, z) of an x-major (nx, ny, nz) grid.
 __device__ __forceinline__ void unflatten(long long i, int ny, int nz,
                                           int& x, int& y, int& z) {

@@ -242,14 +242,14 @@ __global__ void qrows_kernel(const double* __restrict__ rho,
 // and the card's rate of random sectors set the pace.  The least work is
 // each distinct row read once (0.146 ms for iteration 1 at 384^3: 12.9 M
 // rows, 148.8 M lane-steps).  The design does two things about it:
-//   - persistent lanes with refill: the grid is only what fits on the card
-//     at once, and a thread whose lane ends takes the next lane from a
-//     counter in device memory, so a warp no longer idles while its
-//     longest lane (up to the cap, against a mean of 20-60 steps) walks:
-//     on iteration 1 a one-thread-a-lane launch keeps 36 % of its
-//     lane-slots stepping.  A warp claims kWalkBatch lanes with one
-//     atomicAdd and hands them to its idle threads by ballot.  Results go
-//     to each lane's own index;
+//   - persistent lanes with refill (walk.cuh's walk_lanes): the grid is
+//     only what fits on the card at once, and a thread whose lane ends
+//     takes the next lane from a counter in device memory, so a warp no
+//     longer idles while its longest lane (up to the cap, against a mean
+//     of 20-60 steps) walks: on iteration 1 a one-thread-a-lane launch
+//     keeps 36 % of its lane-slots stepping.  A warp claims kWalkBatch
+//     lanes with one atomicAdd and hands them to its idle threads by
+//     ballot.  Results go to each lane's own index;
 //   - the stop set is a 1-bit-a-voxel bitmap (stop_bitmap_kernel, built
 //     before each walk: 7.1 MB at 384^3, which stays in the 50 MB L2), not
 //     the int8 known grid (57 MB): one sector fewer a step to compete for
@@ -262,20 +262,22 @@ __global__ void qrows_kernel(const double* __restrict__ rho,
 // (PERF.md).
 constexpr int kWalkThreads = 256;
 constexpr long long kWalkBatch = 32;
-constexpr unsigned kFull = 0xffffffffu;
 
-// Bit j of the 4 bytes of v set where byte j is 2 (byte 0 lowest).
-__device__ __forceinline__ unsigned twos4(int v) {
-    const unsigned m = __vcmpeq4(static_cast<unsigned>(v), 0x02020202u);
+// Bit j of the 4 bytes of v set where byte j equals that byte of `value`
+// (the stop value in every byte; byte 0 lowest).
+__device__ __forceinline__ unsigned eq4(int v, unsigned value) {
+    const unsigned m = __vcmpeq4(static_cast<unsigned>(v), value);
     return ((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) |
            ((m >> 28) & 8u);
 }
 
-// bits[w] bit b = (known[32 w + b] == 2).  A thread reads a word's 32
-// bytes as two 16-byte loads (known 16-byte aligned); one thread packs the
-// ragged last word.
+// bits[w] bit b = (known[32 w + b] == value): 2 for the known grid, 1 for
+// a bool stop set.  A thread reads a word's 32 bytes as two 16-byte loads
+// (known 16-byte aligned); one thread packs the ragged last word.
 __global__ void stop_bitmap_kernel(const signed char* __restrict__ known,
-                                   unsigned* __restrict__ bits, long long n) {
+                                   unsigned* __restrict__ bits, long long n,
+                                   int value) {
+    const unsigned v4 = static_cast<unsigned>(value & 0xff) * 0x01010101u;
     const long long full = n >> 5;
     const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
     for (long long w = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -283,17 +285,58 @@ __global__ void stop_bitmap_kernel(const signed char* __restrict__ known,
          w < full; w += stride) {
         const int4* p = reinterpret_cast<const int4*>(known + (w << 5));
         const int4 a = __ldg(p), b = __ldg(p + 1);
-        bits[w] = twos4(a.x) | twos4(a.y) << 4 | twos4(a.z) << 8 |
-                  twos4(a.w) << 12 | twos4(b.x) << 16 | twos4(b.y) << 20 |
-                  twos4(b.z) << 24 | twos4(b.w) << 28;
+        bits[w] = eq4(a.x, v4) | eq4(a.y, v4) << 4 | eq4(a.z, v4) << 8 |
+                  eq4(a.w, v4) << 12 | eq4(b.x, v4) << 16 |
+                  eq4(b.y, v4) << 20 | eq4(b.z, v4) << 24 |
+                  eq4(b.w, v4) << 28;
     }
     if (blockIdx.x == 0 && threadIdx.x == 0 && (n & 31)) {
         unsigned word = 0;
         for (long long i = full << 5; i < n; ++i)
-            word |= (known[i] == 2 ? 1u : 0u) << (i & 31);
+            word |= (known[i] == value ? 1u : 0u) << (i & 31);
         bits[full] = word;
     }
 }
+
+// One thread's lane of the single-device walk (walk_lanes' Walk).
+struct GridWalk {
+    const double2* __restrict__ rows;
+    const int* __restrict__ starts;
+    const unsigned* __restrict__ stop;
+    int* __restrict__ pos_out;
+    unsigned char* __restrict__ done_out;
+    int nx, ny, nz, nyz, max_steps;
+    pb::Lane s;
+    int taken;
+
+    __device__ __forceinline__ bool start(long long lane) {
+        s = pb::Lane{starts[lane], -1, -1, -1, -1, 0.0, 0.0, 0.0};
+        taken = 0;
+        if (s.pos >= 0) return true;
+        pos_out[lane] = 0;  // a padding lane, born done at voxel 0
+        done_out[lane] = 1;
+        return false;
+    }
+
+    __device__ __forceinline__ bool step(long long lane) {
+        // the stop word is read beside the row, so both are in flight
+        const unsigned word = stop != nullptr ? __ldg(&stop[s.pos >> 5]) : 0u;
+        const pb::Row r = pb::load_row(rows, s.pos);
+        const bool stopped =
+            (r.flags & kMax) || ((word >> (s.pos & 31)) & 1u);
+        if (stopped || taken == max_steps) {
+            pos_out[lane] = s.pos;
+            done_out[lane] = stopped ? 1 : 0;
+            return true;
+        }
+        const int x = s.pos / nyz;
+        const int rem = s.pos - x * nyz;
+        const int y = rem / nz;
+        pb::advance(r, x, y, rem - y * nz, s, nx, ny, nz);
+        ++taken;
+        return false;
+    }
+};
 
 __global__ void __launch_bounds__(kWalkThreads)
 walk_kernel(const double2* __restrict__ rows, const int* __restrict__ starts,
@@ -301,137 +344,105 @@ walk_kernel(const double2* __restrict__ rows, const int* __restrict__ starts,
             unsigned char* __restrict__ done_out,
             unsigned long long* __restrict__ next, long long k, int nx,
             int ny, int nz, int max_steps) {
-    const int me = threadIdx.x & 31;
-    const unsigned below = (1u << me) - 1u;
-    const int nyz = ny * nz;
-    long long lane = -1;  // this thread's lane, -1 while it has none
-    int step = 0;
-    pb::Lane s{0, -1, -1, -1, -1, 0.0, 0.0, 0.0};
-    // the warp's claimed lanes not yet handed out, [claim, claim_end);
-    // uniform across the warp, as is more (the counter may hold lanes)
-    long long claim = 0, claim_end = 0;
-    bool more = true;
-    for (;;) {
-        unsigned idle = __ballot_sync(kFull, lane < 0);
-        while (idle != 0 && more) {
-            if (claim == claim_end) {
-                unsigned long long b = 0;
-                if (me == 0)
-                    b = atomicAdd(next,
-                                  static_cast<unsigned long long>(kWalkBatch));
-                b = __shfl_sync(kFull, b, 0);
-                if (b >= static_cast<unsigned long long>(k)) {
-                    more = false;
-                    break;
-                }
-                claim = static_cast<long long>(b);
-                claim_end = claim + kWalkBatch < k ? claim + kWalkBatch : k;
-            }
-            const long long avail = claim_end - claim;
-            const int rank = __popc(idle & below);
-            if (lane < 0 && rank < avail) {
-                lane = claim + rank;
-                s = pb::Lane{starts[lane], -1, -1, -1, -1, 0.0, 0.0, 0.0};
-                step = 0;
-                if (s.pos < 0) {  // a padding lane, born done at voxel 0
-                    pos_out[lane] = 0;
-                    done_out[lane] = 1;
-                    lane = -1;
-                }
-            }
-            const long long took = __popc(idle);
-            claim += took < avail ? took : avail;
-            idle = __ballot_sync(kFull, lane < 0);
-        }
-        if (idle == kFull) break;  // nothing left to claim or walk
-        if (lane >= 0) {
-            // the stop word is read beside the row, so both are in flight
-            const unsigned word =
-                stop != nullptr ? __ldg(&stop[s.pos >> 5]) : 0u;
-            const pb::Row r = pb::load_row(rows, s.pos);
-            const bool stopped =
-                (r.flags & kMax) || ((word >> (s.pos & 31)) & 1u);
-            if (stopped || step == max_steps) {
-                pos_out[lane] = s.pos;
-                done_out[lane] = stopped ? 1 : 0;
-                lane = -1;
-            } else {
-                const int x = s.pos / nyz;
-                const int rem = s.pos - x * nyz;
-                const int y = rem / nz;
-                pb::advance(r, x, y, rem - y * nz, s, nx, ny, nz);
-                ++step;
-            }
-        }
-    }
+    GridWalk w{rows, starts, stop, pos_out, done_out, nx, ny, nz, ny * nz,
+               max_steps, pb::Lane{0, -1, -1, -1, -1, 0.0, 0.0, 0.0}, 0};
+    pb::walk_lanes(w, next, k, kWalkBatch);
 }
 
 // The walk of one shard of a mesh, resumable: the owner-computes hand-off
 // of parallel/walk.py.  The shard is the box [ox, ox + lx) x [oy, oy + ly)
 // x [0, nz) of the (nx, ny, nz) grid; its rows (lx * ly * nz of them, in
-// the shard's C order) carry global parents.  Positions are global flat
-// indices, and each step wraps on the global grid.  A lane resumes from its
-// state (pos, prev, hist, dr, steps taken) and walks while it stays in the
-// shard; it ends with status 1 on a maximum or a stop voxel, 2 at the cap
-// (steps == max_steps, not done), or 0 when its position has left the
-// shard, for the owner of that position to resume.  The steps and fetches
+// the shard's C order) carry global parents, and its stop set is a bitmap
+// of the same order.  Positions are global flat indices, and each step
+// wraps on the global grid.  A lane resumes from its state (pos, prev,
+// hist, dr, steps taken, read from the *_in arrays) and walks while it
+// stays in the shard; it ends with status 1 on a maximum or a stop voxel,
+// 2 at the cap (steps == max_steps, not done), or 0 when its position has
+// left the shard (or lies off the grid), for the owner of that position to
+// resume; its new state goes to the output arrays.  The steps and fetches
 // are walk_kernel's, so a lane handed from shard to shard ends where the
 // single-device walk ends it.
 //
 // Bound: the dependent row gathers, as walk_kernel; the state (48 bytes)
-// is read and written once a launch.  One thread a lane; the stop set is a
-// bool grid of the shard.
-__global__ void walk_shard_kernel(const double2* __restrict__ rows,
-                                  const unsigned char* __restrict__ stop,
-                                  int* __restrict__ pos, int* __restrict__ prev,
-                                  int* __restrict__ hist,
-                                  double* __restrict__ dr,
-                                  int* __restrict__ steps,
-                                  unsigned char* __restrict__ status,
-                                  long long k, int lx, int ly, int ox, int oy,
-                                  int nx, int ny, int nz, int max_steps) {
-    const long long lane =
-        static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (lane >= k) return;
-    const int nyz = ny * nz;
-    pb::Lane s{pos[lane],        prev[lane],       hist[3 * lane],
-               hist[3 * lane + 1], hist[3 * lane + 2], dr[3 * lane],
-               dr[3 * lane + 1], dr[3 * lane + 2]};
-    int taken = steps[lane];
-    unsigned char end;
-    for (;;) {
-        const int x = s.pos / nyz;
-        const int rem = s.pos - x * nyz;
-        const int y = rem / nz;
-        const int z = rem - y * nz;
-        if (x < ox || x >= ox + lx || y < oy || y >= oy + ly) {
-            end = 0;
-            break;
-        }
-        const long long li =
-            (static_cast<long long>(x - ox) * ly + (y - oy)) * nz + z;
-        const pb::Row r = pb::load_row(rows, li);
-        if ((r.flags & kMax) || (stop != nullptr && stop[li])) {
-            end = 1;
-            break;
-        }
-        if (taken == max_steps) {
-            end = 2;
-            break;
-        }
-        pb::advance(r, x, y, z, s, nx, ny, nz);
-        ++taken;
+// is read once and written once a lane.  The design is walk_kernel's:
+// persistent lanes with refill (a hand-off round's longest lane walks up
+// to the cap while most end in a few steps) and the stop set as a bitmap
+// read beside the row, built once a walk_sharded call.  The position's
+// coordinates give the row's address here (the shard's own order), so
+// they divide by a 64-bit multiply (Divisor) on the step's critical path;
+// walk_kernel divides after its row load is issued, where the integer
+// division measured faster (PERF.md).
+struct ShardWalk {
+    const double2* __restrict__ rows;
+    const unsigned* __restrict__ stop;
+    const int* __restrict__ pos_in;
+    const int* __restrict__ prev_in;
+    const int* __restrict__ hist_in;
+    const double* __restrict__ dr_in;
+    const int* __restrict__ steps_in;
+    int* __restrict__ pos;
+    int* __restrict__ prev;
+    int* __restrict__ hist;
+    double* __restrict__ dr;
+    int* __restrict__ steps;
+    unsigned char* __restrict__ status;
+    int lx, ly, ox, oy, nx, ny, nz, max_steps;
+    unsigned n;               // nx * ny * nz
+    pb::Divisor by_yz, by_z;  // ny * nz, nz
+    pb::Lane s;
+    int taken;
+
+    __device__ __forceinline__ bool start(long long lane) {
+        s = pb::Lane{pos_in[lane],          prev_in[lane],
+                     hist_in[3 * lane],     hist_in[3 * lane + 1],
+                     hist_in[3 * lane + 2], dr_in[3 * lane],
+                     dr_in[3 * lane + 1],   dr_in[3 * lane + 2]};
+        taken = steps_in[lane];
+        return true;
     }
-    pos[lane] = s.pos;
-    prev[lane] = s.prev;
-    hist[3 * lane] = s.h0;
-    hist[3 * lane + 1] = s.h1;
-    hist[3 * lane + 2] = s.h2;
-    dr[3 * lane] = s.d0;
-    dr[3 * lane + 1] = s.d1;
-    dr[3 * lane + 2] = s.d2;
-    steps[lane] = taken;
-    status[lane] = end;
+
+    __device__ __forceinline__ bool step(long long lane) {
+        unsigned char end = 0;  // off the shard
+        if (static_cast<unsigned>(s.pos) < n) {
+            const int x = by_yz.div(s.pos);
+            const int rem = s.pos - x * by_yz.d;
+            const int y = by_z.div(rem);
+            const int z = rem - y * nz;
+            if (static_cast<unsigned>(x - ox) < static_cast<unsigned>(lx) &&
+                static_cast<unsigned>(y - oy) < static_cast<unsigned>(ly)) {
+                const int li = ((x - ox) * ly + (y - oy)) * nz + z;
+                const unsigned word =
+                    stop != nullptr ? __ldg(&stop[li >> 5]) : 0u;
+                const pb::Row r = pb::load_row(rows, li);
+                if ((r.flags & kMax) || ((word >> (li & 31)) & 1u)) {
+                    end = 1;
+                } else if (taken == max_steps) {
+                    end = 2;
+                } else {
+                    pb::advance(r, x, y, z, s, nx, ny, nz);
+                    ++taken;
+                    return false;
+                }
+            }
+        }
+        pos[lane] = s.pos;
+        prev[lane] = s.prev;
+        hist[3 * lane] = s.h0;
+        hist[3 * lane + 1] = s.h1;
+        hist[3 * lane + 2] = s.h2;
+        dr[3 * lane] = s.d0;
+        dr[3 * lane + 1] = s.d1;
+        dr[3 * lane + 2] = s.d2;
+        steps[lane] = taken;
+        status[lane] = end;
+        return true;
+    }
+};
+
+__global__ void __launch_bounds__(kWalkThreads)
+walk_shard_kernel(ShardWalk w, unsigned long long* __restrict__ next,
+                  long long k) {
+    pb::walk_lanes(w, next, k, kWalkBatch);
 }
 
 // Resume quantised-row walks (state in place) for up to max_steps steps:
@@ -538,8 +549,8 @@ PB_EXPORT int pb_neargrid_walk(void* rows, void* starts, void* stop,
 
 // bits: (n + 31) / 32 words; known must be 16-byte aligned
 // (cudaErrorInvalidValue if not).
-PB_EXPORT int pb_stop_bitmap(void* known, void* bits, long long n, int device,
-                             void* stream) {
+PB_EXPORT int pb_stop_bitmap(void* known, void* bits, long long n, int value,
+                             int device, void* stream) {
     cudaSetDevice(device);
     if (reinterpret_cast<unsigned long long>(known) & 15ull)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -547,24 +558,31 @@ PB_EXPORT int pb_stop_bitmap(void* known, void* bits, long long n, int device,
     stop_bitmap_kernel<<<pb::blocks_for((n >> 5) + 1, device), pb::kThreads,
                          0, pb::as_stream(stream)>>>(
         static_cast<const signed char*>(known), static_cast<unsigned*>(bits),
-        n);
+        n, value);
     return static_cast<int>(cudaGetLastError());
 }
 
-// What a walk launch gets, into the host array out[5]: resident blocks per
+// What a walk launch gets (shard: the shard walker's, else the
+// single-device walker's), into the host array out[5]: resident blocks per
 // SM, threads a block, SMs, registers a thread, local (spill) bytes.
-PB_EXPORT int pb_neargrid_walk_occupancy(int device, void* out) {
-    cudaSetDevice(device);
-    int* o = static_cast<int*>(out);
+template <class Kernel>
+int walk_occupancy(Kernel kernel, int device, int* o) {
     cudaFuncAttributes a;
-    cudaFuncGetAttributes(&a, walk_kernel);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[0], walk_kernel,
-                                                  kWalkThreads, 0);
+    cudaFuncGetAttributes(&a, kernel);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[0], kernel, kWalkThreads,
+                                                  0);
     o[1] = kWalkThreads;
     cudaDeviceGetAttribute(&o[2], cudaDevAttrMultiProcessorCount, device);
     o[3] = a.numRegs;
     o[4] = static_cast<int>(a.localSizeBytes);
     return static_cast<int>(cudaGetLastError());
+}
+
+PB_EXPORT int pb_neargrid_walk_occupancy(int shard, int device, void* out) {
+    cudaSetDevice(device);
+    int* o = static_cast<int*>(out);
+    return shard ? walk_occupancy(walk_shard_kernel, device, o)
+                 : walk_occupancy(walk_kernel, device, o);
 }
 
 // err and risky are null for the unscreened walk.
@@ -586,24 +604,34 @@ PB_EXPORT int pb_neargrid_walk_q(void* qrows, void* known, void* pos,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The state arrays (pos, prev, hist (k, 3), dr (k, 3), steps) are updated
-// in place; status is written.  stop may be null.
-PB_EXPORT int pb_neargrid_walk_shard(void* rows, void* stop, void* pos,
-                                     void* prev, void* hist, void* dr,
-                                     void* steps, void* status, long long k,
-                                     int lx, int ly, int ox, int oy, int nx,
-                                     int ny, int nz, int max_steps,
-                                     int device, void* stream) {
+// The input state (pos, prev, hist (k, 3), dr (k, 3), steps) is read, the
+// new state written to the output arrays and status written.  stop: the
+// shard's bitmap of pb_stop_bitmap, or null.  next: a zeroed 64-bit
+// counter, the walk's claim of lanes.
+PB_EXPORT int pb_neargrid_walk_shard(
+        void* rows, void* stop, void* pos_in, void* prev_in, void* hist_in,
+        void* dr_in, void* steps_in, void* pos, void* prev, void* hist,
+        void* dr, void* steps, void* status, void* next, long long k, int lx,
+        int ly, int ox, int oy, int nx, int ny, int nz, int max_steps,
+        int device, void* stream) {
     cudaSetDevice(device);
     if (k <= 0) return static_cast<int>(cudaGetLastError());
-    const long long blocks = (k + pb::kThreads - 1) / pb::kThreads;
-    walk_shard_kernel<<<static_cast<unsigned int>(blocks), pb::kThreads, 0,
-                        pb::as_stream(stream)>>>(
-        static_cast<const double2*>(rows),
-        static_cast<const unsigned char*>(stop), static_cast<int*>(pos),
+    const ShardWalk w{
+        static_cast<const double2*>(rows), static_cast<const unsigned*>(stop),
+        static_cast<const int*>(pos_in), static_cast<const int*>(prev_in),
+        static_cast<const int*>(hist_in), static_cast<const double*>(dr_in),
+        static_cast<const int*>(steps_in), static_cast<int*>(pos),
         static_cast<int*>(prev), static_cast<int*>(hist),
         static_cast<double*>(dr), static_cast<int*>(steps),
-        static_cast<unsigned char*>(status), k, lx, ly, ox, oy, nx, ny, nz,
-        max_steps);
+        static_cast<unsigned char*>(status), lx, ly, ox, oy, nx, ny, nz,
+        max_steps, static_cast<unsigned>(nx) * ny * nz,
+        pb::Divisor::of(ny * nz), pb::Divisor::of(nz),
+        pb::Lane{0, -1, -1, -1, -1, 0.0, 0.0, 0.0}, 0};
+    const long long want = (k + kWalkThreads - 1) / kWalkThreads;
+    const int cap =
+        pb::resident_blocks(walk_shard_kernel, kWalkThreads, 0, device);
+    walk_shard_kernel<<<static_cast<unsigned int>(want < cap ? want : cap),
+                        kWalkThreads, 0, pb::as_stream(stream)>>>(
+        w, static_cast<unsigned long long*>(next), k);
     return static_cast<int>(cudaGetLastError());
 }

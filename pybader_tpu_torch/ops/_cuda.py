@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("stencil.cu", "flood.cu", "reduce.cu", "edges.cu", "neargrid.cu",
            "block_walk.cu", "chase.cu")
 HEADERS = ("common.cuh", "grad.cuh", "march.cuh", "qwalk.cuh", "jump.cuh",
-           "walk.cuh")
+           "tile.cuh", "walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # exact f64: no contraction of a*b+c into one rounding (stencil.cu)
@@ -59,17 +59,17 @@ _ENTRIES = {
     "pb_neargrid_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pb_neargrid_walk": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                          _P),
-    "pb_stop_bitmap": (_P, _P, _L, _I, _P),
-    "pb_neargrid_walk_occupancy": (_I, _P),
+    "pb_stop_bitmap": (_P, _P, _L, _I, _I, _P),
+    "pb_neargrid_walk_occupancy": (_I, _I, _P),
     "pb_neargrid_qrows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pb_neargrid_walk_q": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                            _I, _I, _P),
     "pb_block_walk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
                       _I, _I, _I, _P),
     "pb_nginit_codes": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "pb_chase": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "pb_neargrid_walk_shard": (_P, _P, _P, _P, _P, _P, _P, _P, _L, *(_I,) * 8,
-                               _I, _P),
+    "pb_chase_roots": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P),
+    "pb_chase_gather": (_P, _P, _P, _P, *(_I,) * 5, _I, _P),
+    "pb_neargrid_walk_shard": (*(_P,) * 14, _L, *(_I,) * 8, _I, _P),
 }
 
 _lib = None

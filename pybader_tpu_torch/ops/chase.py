@@ -6,21 +6,26 @@ runs (``_run_chase`` / ``_chase_sweep_impl``) and its two callers,
 the fixed point is each voxel's root) and ``labels_oneshot`` (label
 flooding: maxima seeded with their 1-based rank, the fixed point is each
 voxel's root's label), with ``step_code_from_parent`` and the
-``_flood_seed`` / ``_flood_decode`` contract.  The mesh chase
-(:mod:`pybader_tpu_torch.parallel.chase`) runs :func:`chase` on every
-haloed shard each round.
+``_flood_seed`` / ``_flood_decode`` contract.
 
 The TPU kernel composes values by roll-select passes over VMEM tiles;
-``csrc/chase.cu`` jumps pointers to their roots instead and gathers the
-values there, which reaches the same fixed point on any acyclic code graph.
+``csrc/chase.cu`` finds each voxel's root from the codes instead
+(:func:`chase_roots`) and gathers the values there (:func:`chase_gather`),
+which reaches the same fixed point on any acyclic code graph.  The mesh
+chase (:mod:`pybader_tpu_torch.parallel.chase`) resolves each haloed
+shard's roots once a call and runs one gather a round.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from pybader_tpu_torch.grid import OFFSETS, SELF_INDEX
 from pybader_tpu_torch.ops import _cuda
-from pybader_tpu_torch.ops.pointer import _JUMP_FLAGS, _MAX_PASSES
+from pybader_tpu_torch.ops.pointer import _JUMP_FLAGS, _MAX_PASSES, \
+    resolve_roots_plain
+from pybader_tpu_torch.ops.stencil import parent_from_step_codes
 
 
 def chase(values: torch.Tensor, best_k: torch.Tensor):
@@ -28,7 +33,8 @@ def chase(values: torch.Tensor, best_k: torch.Tensor):
     array given, with periodic wrap (code 13, the self step, freezes a
     voxel).  ``values``: int32 grid; ``best_k``: uint8 step codes of the
     same shape.  returns (out int32 grid, the number of voxels whose value
-    changed).  A CUDA tensor runs ``csrc/chase.cu``."""
+    changed).  A CUDA tensor runs ``csrc/chase.cu``: :func:`chase_roots`,
+    then :func:`chase_gather`."""
     if _cuda.on_cuda(values):
         return chase_cuda(values, best_k)
     return chase_plain(values, best_k)
@@ -59,32 +65,107 @@ def chase_plain(values, best_k):
 
 
 def chase_cuda(values, best_k):
-    """Launch ``pb_chase`` (csrc/chase.cu); the pointer grid and the flags
-    are scratch allocated here."""
+    """The chase on the card: the roots of ``best_k``, then one gather of
+    ``values`` (two launches, counted by their wrappers)."""
     _cuda.check(values, torch.int32, "values")
     if values.dim() != 3:
         raise ValueError(f"values: expected a 3-D grid, got "
                          f"{tuple(values.shape)}")
     _cuda.check(best_k, torch.uint8, "best_k", values.shape)
-    out = torch.empty_like(values)
-    ptr = torch.empty_like(values)
-    # the jump passes' flags, then the changed count
-    flag = torch.empty((_JUMP_FLAGS + 1,), dtype=torch.int32,
-                       device=values.device)
-    nx, ny, nz = values.shape
+    out, changed = chase_gather_cuda(values, chase_roots_cuda(best_k))
+    return out, int(changed)
+
+
+def chase_roots(best_k: torch.Tensor) -> torch.Tensor:
+    """Each voxel's root along the step codes, with periodic wrap: the
+    flat index (int32, ``best_k``'s shape) of the code-13 voxel its chain
+    ends on, so that the chase's fixed point is ``values[root]``.  A CUDA
+    tensor runs ``csrc/chase.cu``."""
+    if _cuda.on_cuda(best_k):
+        return chase_roots_cuda(best_k)
+    return chase_roots_plain(best_k)
+
+
+def chase_roots_plain(best_k):
+    """Pointer doubling on the codes' one-step parents."""
+    return resolve_roots_plain(parent_from_step_codes(best_k))
+
+
+def chase_roots_cuda(best_k, stats=None):
+    """Launch ``pb_chase_roots`` (csrc/chase.cu): the tile pass from the
+    codes, then the global jump passes.  ``stats['passes']``: the jump
+    passes after the tile pass."""
+    _cuda.check(best_k, torch.uint8, "best_k")
+    if best_k.dim() != 3:
+        raise ValueError(f"best_k: expected a 3-D grid, got "
+                         f"{tuple(best_k.shape)}")
+    root = torch.empty(best_k.shape, dtype=torch.int32, device=best_k.device)
+    flags = torch.empty((_JUMP_FLAGS,), dtype=torch.int32,
+                        device=best_k.device)
+    passes = ctypes.c_int(0)
     try:
-        _cuda.call("pb_chase", values.data_ptr(), best_k.data_ptr(),
-                   out.data_ptr(), ptr.data_ptr(), flag.data_ptr(), nx, ny,
-                   nz, _MAX_PASSES, values.device.index or 0,
-                   _cuda.stream(values))
+        _cuda.call("pb_chase_roots", best_k.data_ptr(), root.data_ptr(),
+                   *best_k.shape, flags.data_ptr(), _MAX_PASSES,
+                   ctypes.addressof(passes), best_k.device.index or 0,
+                   _cuda.stream(best_k))
     except _cuda.KernelError as e:
         if e.code == -1:
             raise RuntimeError(
                 f"the chase did not converge in {_MAX_PASSES} jump passes "
                 f"-- is the code graph acyclic?") from e
         raise
-    _cuda.launches["chase"] += 1
-    return out, int(flag[_JUMP_FLAGS])
+    _cuda.launches["chase_roots"] += 1
+    if stats is not None:
+        stats["passes"] = passes.value
+    return root
+
+
+def chase_gather(values: torch.Tensor, root: torch.Tensor, pads=(0, 0)):
+    """One gather of the chase: ``values`` at ``root`` (the roots of
+    :func:`chase_roots`, flat indices into ``values``), cropped by
+    ``pads`` = (px, py) voxels at both ends of x and y (the ring a mesh
+    shard is padded with).  returns (out int32 of the cropped shape, the
+    number of its voxels whose value changed as a one-element int32 tensor
+    on the values' device, so that a caller reads several at once).  A
+    CUDA tensor runs ``csrc/chase.cu``."""
+    if _cuda.on_cuda(values):
+        return chase_gather_cuda(values, root, pads)
+    return chase_gather_plain(values, root, pads)
+
+
+def _crop(grid, pads):
+    px, py = pads
+    return grid[px:grid.shape[0] - px, py:grid.shape[1] - py]
+
+
+def chase_gather_plain(values, root, pads=(0, 0)):
+    """Index the flat values with the roots, crop, compare."""
+    out = _crop(values.reshape(-1)[root.long()], pads).contiguous()
+    changed = (out != _crop(values, pads)).sum()
+    return out, changed.to(torch.int32).reshape(1)
+
+
+def chase_gather_cuda(values, root, pads=(0, 0)):
+    """Launch ``pb_chase_gather`` (csrc/chase.cu); the change count is
+    read by the caller."""
+    _cuda.check(values, torch.int32, "values")
+    if values.dim() != 3:
+        raise ValueError(f"values: expected a 3-D grid, got "
+                         f"{tuple(values.shape)}")
+    _cuda.check(root, torch.int32, "root", values.shape)
+    px, py = (int(p) for p in pads)
+    nx, ny, nz = values.shape
+    if px < 0 or py < 0 or 2 * px > nx or 2 * py > ny:
+        raise ValueError(f"pads: expected 0 <= 2 * pad <= ({nx}, {ny}), got "
+                         f"{tuple(pads)}")
+    out = torch.empty((nx - 2 * px, ny - 2 * py, nz), dtype=torch.int32,
+                      device=values.device)
+    count = torch.empty((1,), dtype=torch.int32, device=values.device)
+    _cuda.call("pb_chase_gather", values.data_ptr(), root.data_ptr(),
+               out.data_ptr(), count.data_ptr(), *out.shape, px, py,
+               values.device.index or 0, _cuda.stream(values))
+    _cuda.launches["chase_gather"] += 1
+    return out, count
 
 
 def step_code_from_parent(parent: torch.Tensor) -> torch.Tensor:

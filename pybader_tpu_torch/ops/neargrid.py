@@ -292,24 +292,35 @@ def neargrid_walk_cuda(rows, starts, shape, max_steps: int, known=None):
     return pos, done
 
 
-def walk_occupancy(device) -> dict:
-    """What a ``pb_neargrid_walk`` launch gets on a CUDA ``device``:
-    resident blocks per SM, threads a block, SMs, registers a thread and
-    local (spill) bytes a thread."""
+def walk_occupancy(device, shard: bool = False) -> dict:
+    """What a ``pb_neargrid_walk`` launch (``shard``: a
+    ``pb_neargrid_walk_shard`` launch) gets on a CUDA ``device``: resident
+    blocks per SM, threads a block, SMs, registers a thread and local
+    (spill) bytes a thread."""
     out = (ctypes.c_int * 5)()
-    _cuda.call("pb_neargrid_walk_occupancy", torch.device(device).index or 0,
-               ctypes.addressof(out))
+    _cuda.call("pb_neargrid_walk_occupancy", int(shard),
+               torch.device(device).index or 0, ctypes.addressof(out))
     return dict(zip(("blocks_per_sm", "threads", "sms", "registers",
                      "spill_bytes"), out))
 
 
 # ----------------------------------------------------------- stop bitmap
-def stop_bitmap_plain(known):
-    """The stop set ``known == 2`` of the exact walk as a bitmap (JAX's
-    ``update_stop`` for the CUDA walker): int32 words holding the bits of
-    uint32, bit ``b`` of word ``w`` set where flat voxel ``32 w + b`` is
-    2; ``ceil(N / 32)`` words, the last one padded with 0."""
-    flat = (known.reshape(-1) == 2).long()
+def stop_bitmap(known: torch.Tensor, value: int = 2) -> torch.Tensor:
+    """The stop set ``known == value`` as a bitmap: 2 for the int8 known
+    grid, 1 (True) for a bool stop set.  A CUDA tensor runs
+    ``csrc/neargrid.cu``."""
+    if _cuda.on_cuda(known):
+        return stop_bitmap_cuda(known, value)
+    return stop_bitmap_plain(known, value)
+
+
+def stop_bitmap_plain(known, value: int = 2):
+    """The stop set ``known == value`` of the exact walk as a bitmap
+    (JAX's ``update_stop`` for the CUDA walker): int32 words holding the
+    bits of uint32, bit ``b`` of word ``w`` set where flat voxel ``32 w +
+    b`` is ``value``; ``ceil(N / 32)`` words, the last one padded with
+    0."""
+    flat = (known.reshape(-1) == value).long()
     words = -(-flat.numel() // 32)
     bits = torch.zeros(words * 32, dtype=torch.long, device=known.device)
     bits[:flat.numel()] = flat
@@ -317,10 +328,13 @@ def stop_bitmap_plain(known):
     return _i32((bits.view(words, 32) << shift).sum(1))
 
 
-def stop_bitmap_cuda(known):
+def stop_bitmap_cuda(known, value: int = 2):
     """Launch ``pb_stop_bitmap`` (csrc/neargrid.cu): the bitmap of
     :func:`stop_bitmap_plain`, which :func:`neargrid_walk_cuda` builds
-    before each walk."""
+    before each walk and ``walk_sharded`` once a call for each shard's
+    bool stop set (int8 or bool)."""
+    if known.dtype == torch.bool:
+        known = known.view(torch.int8)
     _cuda.check(known, torch.int8, "known")
     if known.data_ptr() % 16:
         known = known.clone()  # the kernel reads 16-byte vectors
@@ -328,7 +342,7 @@ def stop_bitmap_cuda(known):
     bits = torch.empty((-(-n // 32),), dtype=torch.int32,
                        device=known.device)
     _cuda.call("pb_stop_bitmap", known.data_ptr(), bits.data_ptr(), n,
-               known.device.index or 0, _cuda.stream(known))
+               int(value), known.device.index or 0, _cuda.stream(known))
     _cuda.launches["stop_bitmap"] += 1
     return bits
 
@@ -352,13 +366,16 @@ def neargrid_walk_shard(rows: torch.Tensor, stop: torch.Tensor | None,
 
     The shard is the box ``origin + [0, local_shape)`` of the grid
     ``shape`` (z whole); ``rows`` are its (lx * ly * nz, 4) rows in its own
-    C order, with global parents; ``stop`` its bool stop set or None.
-    ``state`` (:func:`shard_state`) holds global flat positions.  A lane
-    walks while it stays in the shard, as :func:`neargrid_walk` walks it
-    on the whole grid, and ends with status 1 (a maximum or stop voxel), 2
-    (``steps == max_steps``) or 0 (its position left the shard: the owner
-    of the new position resumes it).  returns (new state, status uint8).
-    A CUDA tensor runs ``csrc/neargrid.cu``; the input state is kept.
+    C order, with global parents; ``stop`` its stop set as a bitmap of
+    that order (:func:`stop_bitmap` of the bool stop set, value 1) or
+    None; the plain version also takes the bool grid itself.  ``state``
+    (:func:`shard_state`) holds global flat positions.  A lane walks while
+    it stays in the shard, as :func:`neargrid_walk` walks it on the whole
+    grid, and ends with status 1 (a maximum or stop voxel), 2 (``steps ==
+    max_steps``) or 0 (its position left the shard, or lies off the grid:
+    the owner of the new position resumes it).  returns (new state, status
+    uint8); the input state is kept.  A CUDA tensor runs
+    ``csrc/neargrid.cu``.
     """
     if _cuda.on_cuda(rows):
         return neargrid_walk_shard_cuda(rows, stop, state, origin,
@@ -371,8 +388,9 @@ def neargrid_walk_shard_plain(rows, stop, state, origin, local_shape, shape,
                               max_steps: int, stats=None):
     """Plain PyTorch shard walk: live lanes step in lockstep (the step of
     :func:`neargrid_walk_plain`) and leave the batch as they end.
-    ``stats``, if a dict, receives ``lane_steps`` and ``rows_touched`` (the
-    shard's distinct rows read)."""
+    ``stats``, if a dict, receives ``lane_steps``, ``rows_touched`` (the
+    shard's distinct rows read), ``longest`` (the most steps a lane took)
+    and ``warp_steps`` (as :func:`neargrid_walk_plain` counts it)."""
     nx, ny, nz = shape
     lx, ly, _ = local_shape
     ox, oy = origin
@@ -380,6 +398,9 @@ def neargrid_walk_shard_plain(rows, stop, state, origin, local_shape, shape,
     dims = torch.tensor([nx, ny, nz], device=dev)
     words = rows.view(torch.int32)
     grad, parent, flags = rows[:, :3], words[:, 6].long(), words[:, 7]
+    if stop is not None and stop.dtype != torch.bool:  # the bitmap
+        bit = torch.arange(rows.shape[0], device=dev)
+        stop = ((stop.long()[bit >> 5] >> (bit & 31)) & 1).bool()
     stop = None if stop is None else stop.reshape(-1)
     out = [a.clone() for a in state]
     status = torch.zeros(out[0].shape, dtype=torch.uint8, device=dev)
@@ -422,38 +443,42 @@ def neargrid_walk_shard_plain(rows, stop, state, origin, local_shape, shape,
         steps = steps + 1
         lane_steps += lane.numel()
     if stats is not None:
+        taken = (out[4] - state[4]).long()
+        groups = -(-taken.numel() // 32)
+        warps = torch.zeros(groups * 32, dtype=torch.long, device=dev)
+        warps[:taken.numel()] = taken
         stats["lane_steps"] = lane_steps
         stats["rows_touched"] = int(touched.sum())
+        stats["longest"] = int(taken.max()) if taken.numel() else 0
+        stats["warp_steps"] = 32 * int(warps.view(groups, 32).amax(1).sum())
     return tuple(out), status
 
 
 def neargrid_walk_shard_cuda(rows, stop, state, origin, local_shape, shape,
                              max_steps: int):
-    """Launch ``pb_neargrid_walk_shard`` (csrc/neargrid.cu) on a copy of
-    the state."""
+    """Launch ``pb_neargrid_walk_shard`` (csrc/neargrid.cu): it reads the
+    state and writes a new one, with a zeroed lane counter."""
     nx, ny, nz = shape
     lx, ly, lz = local_shape
     if lz != nz:
         raise ValueError(f"local_shape: z must be whole ({nz}), got {lz}")
     _cuda.check(rows, torch.float64, "rows", (lx * ly * lz, 4), per_voxel=4)
     if stop is not None:
-        _cuda.check(stop, torch.bool, "stop", local_shape)
+        _cuda.check(stop, torch.int32, "stop (a bitmap)",
+                    (-(-lx * ly * lz // 32),))
     k = state[0].numel()
     kinds = ((torch.int32, (k,)), (torch.int32, (k,)), (torch.int32, (k, 3)),
              (torch.float64, (k, 3)), (torch.int32, (k,)))
     for a, (dtype, shp), name in zip(state, kinds,
                                      ("pos", "prev", "hist", "dr", "steps")):
         _cuda.check(a, dtype, name, shp)
-    if k:
-        lo, hi = torch.aminmax(state[0])
-        if int(lo) < 0 or int(hi) >= nx * ny * nz:
-            raise ValueError(f"pos: flat indices must lie in "
-                             f"[0, {nx * ny * nz})")
-    out = tuple(a.clone() for a in state)
+    out = tuple(torch.empty_like(a) for a in state)
     status = torch.empty((k,), dtype=torch.uint8, device=rows.device)
+    claimed = torch.zeros((1,), dtype=torch.int64, device=rows.device)
     _cuda.call("pb_neargrid_walk_shard", rows.data_ptr(),
                None if stop is None else stop.data_ptr(),
-               *(a.data_ptr() for a in out), status.data_ptr(), k, lx, ly,
+               *(a.data_ptr() for a in state), *(a.data_ptr() for a in out),
+               status.data_ptr(), claimed.data_ptr(), k, lx, ly,
                int(origin[0]), int(origin[1]), nx, ny, nz, int(max_steps),
                rows.device.index or 0, _cuda.stream(rows))
     _cuda.launches["neargrid_walk_shard"] += 1

@@ -7,12 +7,16 @@ the chase kernel (``ops/pallas_chase.py``) to the device mesh:
   along the sharded axes (:func:`~pybader_tpu_torch.parallel.mesh.halo`: x
   slabs first, then y slabs of the x-padded block, so the corners ride
   along); a lone shard along an axis is its own neighbour;
-- the halo carries the self step code (13), so it is frozen: the chase of
-  the padded block (:func:`pybader_tpu_torch.ops.chase.chase`, kernel 9 on
-  a CUDA shard) runs to its local fixed point, and a chain that leaves the
-  shard ends on the neighbour's value at the ring;
+- the halo carries the self step code (13), so it is frozen, and a chain
+  that leaves the shard ends on the ring, on the neighbour's value;
+- the codes, ring included, are the same in every round, so each padded
+  block's roots are resolved once a call
+  (:func:`~pybader_tpu_torch.ops.chase.chase_roots`), and a round's local
+  fixed point is the halo-padded values at the roots: one gather a shard,
+  cropped to the interior as it is written
+  (:func:`~pybader_tpu_torch.ops.chase.chase_gather`);
 - rounds of (exchange, local fixed point) repeat until no shard changed a
-  value; the shards' change counts meet on the host.
+  value; the shards' change counts meet on the host, one read a round.
 
 Every intermediate value is a composition of the pointer graph, and the
 unique fixed point of each chain is its root's value, so stale halos only
@@ -24,9 +28,9 @@ from __future__ import annotations
 import torch
 
 from pybader_tpu_torch.grid import SELF_INDEX
-from pybader_tpu_torch.ops.chase import chase
+from pybader_tpu_torch.ops import chase
 from pybader_tpu_torch.parallel.mesh import (
-    Layout, Mesh, Sharded, crop, halo, layout_of, shard,
+    Layout, Mesh, Sharded, halo, layout_of, shard,
 )
 
 
@@ -47,7 +51,7 @@ def pin_codes(codes: Sharded):
 
 
 def sharded_chase(mesh: Mesh, values, bk, spec=None,
-                  max_rounds: int = 1024) -> Sharded:
+                  max_rounds: int = 1024, stats=None) -> Sharded:
     """Converge ``values`` along the step-code graph on a device mesh.
 
     args:
@@ -55,18 +59,26 @@ def sharded_chase(mesh: Mesh, values, bk, spec=None,
             parents (pointer semantics) or a label seed (flood semantics).
         bk: uint8 step codes of the same grid (13 = self).
         spec: a 2-D grid spec; default :func:`grid_spec_2d`.
+        stats: a dict, or None; receives ``rounds``, the rounds run (the
+            last one changed nothing, or was the ``max_rounds``-th).
     returns the values converged to each voxel's root value, sharded.
     """
     lay: Layout = layout_of(mesh, values, spec)
     vals = shard(lay, values, torch.int32)
-    pinned = pin_codes(shard(lay, bk, torch.uint8))
-    for _ in range(max_rounds):
-        blocks, changed = [], 0
-        for padded, codes in zip(halo(vals, 1), pinned):
-            out, n = chase(padded.contiguous(), codes)
-            blocks.append(crop(out, lay, 1))
-            changed += n
+    roots = [chase.chase_roots(c)
+             for c in pin_codes(shard(lay, bk, torch.uint8))]
+    pads = tuple(int(a in lay.pads) for a in (0, 1))
+    home = lay.devices[0]
+    rounds = 0
+    for rounds in range(1, max_rounds + 1):
+        blocks, counts = [], []
+        for padded, root in zip(halo(vals, 1), roots):
+            out, n = chase.chase_gather(padded, root, pads)
+            blocks.append(out)
+            counts.append(n.to(home, non_blocking=True))
         vals = Sharded(lay, blocks)
-        if not changed:
+        if not int(torch.cat(counts).sum()):
             break
+    if stats is not None:
+        stats["rounds"] = rounds
     return vals

@@ -11,7 +11,8 @@ the owner computes instead:
   and codes, cropped, with global parents), equal to the whole grid's rows;
 - a lane walks on the shard that owns its position, through the resumable
   shard walker (``neargrid_walk_shard``), until it is done, reaches the
-  cap, or steps off the shard;
+  cap, or steps off the shard; the walker reads each shard's stop set as a
+  bitmap, built once a call;
 - its state (pos, prev, the 3-entry history, dr, steps taken) then moves,
   from the shard that walked it straight to the owner of its new position
   (:func:`hand_off`), which resumes it in the next round; each shard keeps
@@ -91,8 +92,9 @@ def walk_sharded(mesh: Mesh, starts, reference, bk, stop, t_grad,
     if rows is None:
         rows = shard_rows(shard(lay, reference, torch.float64),
                           shard(lay, bk, torch.uint8), t_grad, strict_grad)
-    stops = [None] * len(lay.ids) if stop is None else \
-        shard(lay, stop, torch.bool).blocks
+    stops = [None] * len(lay.ids) if stop is None else [
+        neargrid.stop_bitmap(b, 1)
+        for b in shard(lay, stop, torch.bool).blocks]
     home = lay.devices[0]
     starts = torch.as_tensor(starts).to(home).reshape(-1)
     pos = starts.clamp(min=0).to(torch.int32)

@@ -122,3 +122,66 @@ def test_chase_plain_padded_matches_local_fixed_point(axes):
         got, n = fn(torch.from_numpy(vals), torch.from_numpy(bk))
         np.testing.assert_array_equal(got.numpy(), want)
         assert n == int((want != vals).sum()) > 0
+
+
+def _pinned_blocks(n, bk):
+    """The port's and JAX's pinned padded shard blocks of ``bk`` on an
+    n-shard virtual mesh (the port's layout: shards in C order over the
+    sharded axes, a frozen ring of code 13 along them)."""
+    from pybader_tpu_torch.parallel import make_mesh
+    from pybader_tpu_torch.parallel import mesh as tmesh
+    from pybader_tpu_torch.parallel.chase import pin_codes
+
+    lay = tmesh.Layout(make_mesh(n, device="cpu"), bk.shape)
+    ours = pin_codes(tmesh.shard(lay, torch.from_numpy(bk)))
+    theirs = [np.asarray(jchase._pin_codes(jnp.asarray(b.numpy()), lay.spec))
+              for b in tmesh.shard(lay, torch.from_numpy(bk)).blocks]
+    return lay, ours, theirs
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_chase_roots_plain_on_pinned_shard_blocks(n):
+    """The roots of a mesh round: on every pinned padded shard block of the
+    n-device virtual mesh, JAX's _local_fixed_point seeded with each
+    voxel's own flat index reaches the roots' plain twin."""
+    bk, _ = field("random", seed=5)
+    lay, ours, theirs = _pinned_blocks(n, bk)
+    assert lay.pads
+    for block, jblock in zip(ours, theirs):
+        np.testing.assert_array_equal(block.numpy(), jblock)
+        seed = np.arange(block.numel(), dtype=np.int32).reshape(block.shape)
+        want = np.asarray(jchase._local_fixed_point(jnp.asarray(seed),
+                                                    jnp.asarray(jblock)))
+        got = tchase.chase_roots(block)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert (got.numpy() != seed).any()
+
+
+@pytest.mark.parametrize("pads", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_chase_gather_plain_matches_chase_plain(pads):
+    """values[root], cropped by the pads as it is written, with the change
+    count of the interior: the roll-select chase's fixed point and count."""
+    bk, vac = field("vacuum", seed=6)
+    bk = torch.from_numpy(bk)
+    vals = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 1 << 20, size=bk.shape).astype(np.int32))
+    want, _ = tchase.chase_plain(vals, bk)
+    px, py = pads
+    crop = (slice(px, bk.shape[0] - px), slice(py, bk.shape[1] - py))
+    got, n = tchase.chase_gather(vals, tchase.chase_roots(bk), pads)
+    assert got.is_contiguous() and n.dtype == torch.int32
+    assert torch.equal(got, want[crop])
+    assert int(n) == int((want[crop] != vals[crop]).sum()) > 0
+    if pads == (0, 0):
+        assert tchase.chase_plain(vals, bk)[1] == int(n)
+
+
+def test_chase_part_wrappers_reject_cpu_tensors():
+    bk, _ = field("random")
+    bk = torch.from_numpy(bk)
+    with pytest.raises(ValueError, match="CUDA"):
+        tchase.chase_roots_cuda(bk)
+    with pytest.raises(ValueError, match="CUDA"):
+        tchase.chase_gather_cuda(torch.zeros(bk.shape, dtype=torch.int32),
+                                 torch.zeros(bk.shape, dtype=torch.int32))

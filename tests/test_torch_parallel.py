@@ -240,6 +240,116 @@ def test_walk_shard_kernel_plain_twin(cap):
     assert (new[4] <= cap).all()
 
 
+@pytest.mark.parametrize("cap", [3, 192])
+def test_walk_shard_stop_bitmap_matches_bool_walk_and_jax(cap):
+    """The shard walk reading each shard's stop set as a bitmap equals the
+    walk of the bool grid on every shard's lanes, leaves its input state as
+    it was, and walk_sharded (bitmaps built once a call) equals the
+    single-device walker and JAX's walk_sharded."""
+    from pybader_tpu_torch.parallel.walk import shard_rows
+
+    rho, bk, known = _walk_fields()
+    tm = make_mesh(4, device="cpu")
+    lay = tmesh.Layout(tm, SHAPE)
+    rows = shard_rows(tmesh.shard(lay, t(rho)), tmesh.shard(lay, t(bk)), TG,
+                      True)
+    stop = tmesh.shard(lay, t(known == 2))
+    edge = torch.as_tensor(np.flatnonzero(known == -2), dtype=torch.int32)
+    status_seen = set()
+    for s in range(len(lay.ids)):
+        bits = neargrid.stop_bitmap(stop.blocks[s], 1)
+        assert torch.equal(bits, neargrid.stop_bitmap_plain(
+            stop.blocks[s].to(torch.int8) * 2))
+        state = neargrid.shard_state(edge[lay.owner(edge) == s])
+        kept = tuple(a.clone() for a in state)
+        args = (state, lay.origin(s)[:2], lay.local_shape, SHAPE, cap)
+        new_b, status_b = neargrid.neargrid_walk_shard(rows[s], bits, *args)
+        new_g, status_g = neargrid.neargrid_walk_shard(rows[s],
+                                                       stop.blocks[s], *args)
+        assert torch.equal(status_b, status_g)
+        for a, b in zip(new_b, new_g):
+            assert torch.equal(a, b)
+        for a, b in zip(state, kept):
+            assert torch.equal(a, b)  # the input state is left unchanged
+        status_seen |= set(status_b.tolist())
+    assert {0, 1} <= status_seen and (cap != 3 or 2 in status_seen)
+    starts = np.array(compact_indices(jnp.asarray((known == -2).reshape(-1)),
+                                      4096))
+    pos, done = walk_sharded(tm, t(starts), t(rho), t(bk), t(known == 2), TG,
+                             strict_grad=True, max_steps=cap)
+    full = neargrid.neargrid_rows(t(rho), t(bk), TG, True)
+    pos_1, done_1 = neargrid.neargrid_walk(full, t(starts), SHAPE, cap,
+                                           t(known))
+    assert torch.equal(pos, pos_1) and torch.equal(done, done_1)
+    jpos, jdone = jax_walk(jax_mesh(4), starts, rho,
+                           jax_parent(jnp.asarray(bk)), known == 2, TG,
+                           strict_grad=True, max_steps=cap)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
+    np.testing.assert_array_equal(done.numpy(), np.asarray(jdone))
+
+
+def test_walk_shard_lane_off_the_grid_ends_off_shard():
+    """A lane whose position lies off the grid ends at once with status 0
+    and its state unchanged, as a lane off the shard does (the kernel
+    tests the position on the card; the wrapper reads nothing back)."""
+    from pybader_tpu_torch.parallel.walk import shard_rows
+
+    rho, bk, known = _walk_fields()
+    lay = tmesh.Layout(make_mesh(4, device="cpu"), SHAPE)
+    rows = shard_rows(tmesh.shard(lay, t(rho)), tmesh.shard(lay, t(bk)), TG,
+                      True)
+    n = int(np.prod(SHAPE))
+    state = neargrid.shard_state(torch.tensor([-1, n, n + 7, -n],
+                                              dtype=torch.int32))
+    new, status = neargrid.neargrid_walk_shard(
+        rows[0], None, state, lay.origin(0)[:2], lay.local_shape, SHAPE, 192)
+    assert status.tolist() == [0, 0, 0, 0]
+    for a, b in zip(new, state):
+        assert torch.equal(a, b)
+
+
+def _plain_round_loop(lay, values, bk):
+    """The mesh chase as a loop of rounds of the roll-select chase: each
+    padded shard block chased to its local fixed point, then cropped.
+    returns (values, rounds)."""
+    from pybader_tpu_torch.ops.chase import chase_plain
+    from pybader_tpu_torch.parallel.chase import pin_codes
+
+    vals = tmesh.shard(lay, values, torch.int32)
+    pinned = pin_codes(tmesh.shard(lay, bk, torch.uint8))
+    rounds = 0
+    while True:
+        rounds += 1
+        blocks, changed = [], 0
+        for padded, codes in zip(tmesh.halo(vals, 1), pinned):
+            out, n = chase_plain(padded.contiguous(), codes)
+            blocks.append(tmesh.crop(out, lay, 1))
+            changed += n
+        vals = tmesh.Sharded(lay, blocks)
+        if not changed:
+            return vals, rounds
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_chase_matches_plain_round_loop(n):
+    """Roots once a call and one gather a round: the same values in the
+    same number of rounds as the round loop of the roll-select chase, for
+    the flood seed and for the one-step parents."""
+    from pybader_tpu_torch.parallel.chase import sharded_chase
+
+    lay = tmesh.Layout(make_mesh(n, device="cpu"), SHAPE)
+    bk = sharded.step_codes(tmesh.shard(lay, t(make_density(3))), W)
+    seed, _, _ = sharded._seed_local(bk, None)
+    parent = tmesh.Sharded(lay, [lay.parent(b, s)
+                                 for s, b in enumerate(bk.blocks)])
+    for values in (seed, parent):
+        want, rounds = _plain_round_loop(lay, values, bk)
+        stats = {}
+        got = sharded_chase(lay.mesh, values, bk, stats=stats)
+        assert torch.equal(got.join(), want.join())
+        assert stats["rounds"] == rounds >= 2
+
+
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_hand_off_routes_lanes_to_owners(n):
     """hand_off sends each lane, its whole state with it, to the shard that

@@ -36,12 +36,14 @@ Inputs, all made on the card from seeds: chip_smoke's 384^3 blob field and
   (ragged grids, axes of 2, 25 % vacuum);
 
 - resolve_roots on the one-step parents of both fields and on
-  ``chip_smoke.roots_inputs`` (a ramp along x, a flat parent of odd length);
+  ``chip_smoke.roots_inputs`` (a ramp along x, a flat parent of odd length),
+  with ``device_ms``;
 - remap_labels of each field's labels through a random permutation of its
   labels (62 and about 2.1 M), with ``torch.index_select`` of the same
   table and a device copy of the labels timed beside it;
 - the walk of refinement's first iteration on the blob field (every edge
-  voxel, the stop set at known == 2, the refinement cap);
+  voxel, the stop set at known == 2, the refinement cap), with
+  ``device_ms`` (the walker's and its stop bitmap's kernels);
 - edge_check on the known grid after that walk (dense), on 0.6 M of its
   edges sampled with seed 5 (sparse), on the input the last edge_check of
   a default ``Bader()`` call receives (last) and on
@@ -49,16 +51,25 @@ Inputs, all made on the card from seeds: chip_smoke's 384^3 blob field and
   vacuum);
 - the chase on shard 0's padded block of the first chase round on
   ``make_mesh(4, device="cuda")`` (the flood seed; the table's row);
+- on that mesh, ``sharded_chase`` of the mesh partition's flood seed
+  (``mesh_chase``) and ``walk_sharded`` of refinement's first iteration
+  (``mesh_walk``: every edge voxel, the stop set, the refinement cap, the
+  shards' rows built beforehand), each with ``device_ms`` of its own
+  kernels (the chase's; the shard walker's and its stop bitmaps') beside
+  the torch kernels of the host loop (``other_ms``);
 - at 256^3 the walks of chip_smoke's 2^20 random starts and of every voxel
-  (the full-trajectory partition's walk; no stop set, the initial cap).
+  (the full-trajectory partition's walk; no stop set, the initial cap),
+  with ``device_ms``.
 
 Each kernel's output must equal its plain PyTorch version (the rows bit
 for bit).  Times are CUDA events, the median of ``--reps``; for
-ongrid_step_codes, surface_min_d2, neargrid_rows, min_pair, nginit_codes
-and neargrid_qrows also ``device_ms``, the device time of the call's
-kernels alone (from ``torch.profiler``, the mean of ``--reps`` calls),
-which leaves out the wrapper's own host work and copies.  ``--only
-stencil,surface`` (prefixes of the case names) times those cases alone.
+ongrid_step_codes, surface_min_d2, neargrid_rows, min_pair, nginit_codes,
+neargrid_qrows and resolve_roots also ``device_ms``, the device time of
+the call's kernels alone (from ``torch.profiler``, the mean of ``--reps``
+calls), which leaves out the wrapper's own host work and copies.
+``--only stencil,surface`` (prefixes of the case names) times those
+cases alone; ``--only roots,chase,mesh`` the roots, the iteration-1 walk
+and the chase on one device and on the mesh.
 Prints one JSON line.
 """
 from __future__ import annotations
@@ -111,7 +122,9 @@ def main(argv=None):
     def timed(fn):
         return cs.time_ms(fn, args.reps)
 
-    def device_ms(fn):
+    def device_ms(fn, names=None):
+        """The mean device time of a call's kernels; with ``names``, of the
+        kernels whose names contain one of them, and of the others."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -120,9 +133,16 @@ def main(argv=None):
             for _ in range(args.reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.key_averages()
-                 if not e.key.startswith(("Memcpy", "Memset")))
-        return us / 1e3 / args.reps
+        mine = other = 0.0
+        for e in prof.key_averages():
+            if e.key.startswith(("Memcpy", "Memset")):
+                continue
+            if names is None or any(n in e.key for n in names):
+                mine += e.device_time_total
+            else:
+                other += e.device_time_total
+        ms = mine / 1e3 / args.reps
+        return ms if names is None else (ms, other / 1e3 / args.reps)
 
     def same(a, b, what):
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
@@ -205,7 +225,11 @@ def main(argv=None):
             return
         same((pointer.resolve_roots_cuda(parent),),
              (pointer.resolve_roots_plain(parent),), name)
-        out[name] = {"ms": timed(lambda: pointer.resolve_roots_cuda(parent))}
+
+        def call():
+            return pointer.resolve_roots_cuda(parent)
+
+        out[name] = {"ms": timed(call), "device_ms": device_ms(call)}
 
     def sums(name, density, labels, k):
         if not want(name):
@@ -230,6 +254,51 @@ def main(argv=None):
              (edges.edge_check_plain(known, labels, is_max),), name)
         out[name] = {"edges": int((known == -2).sum()), "ms": timed(
             lambda: edges.edge_check_cuda(known, labels, is_max))}
+
+    def mesh_cases(mesh, rho, codes, w, starts, known, tg, cap, rows):
+        """sharded_chase and walk_sharded on the mesh, each against the
+        single-device result, with their kernels' device time."""
+        from pybader_tpu_torch.parallel import mesh as pmesh
+        from pybader_tpu_torch.parallel import sharded
+        from pybader_tpu_torch.parallel.chase import sharded_chase
+        from pybader_tpu_torch.parallel.walk import shard_rows, walk_sharded
+
+        lay = pmesh.Layout(mesh, rho.shape)
+        bk = sharded.step_codes(pmesh.shard(lay, rho), w)
+        seed = sharded._seed_local(bk, None)[0]
+        # the fixed point: each voxel's seed value at its root
+        root = pointer.resolve_roots_cuda(
+            stencil.parent_from_step_codes(codes)).reshape(-1).long()
+        want_flood = seed.join("cuda").reshape(-1)[root].reshape(rho.shape)
+        if not torch.equal(sharded_chase(mesh, seed, bk).join("cuda"),
+                           want_flood):
+            raise AssertionError("mesh_chase: differs from the seed at the "
+                                 "roots")
+        del root, want_flood
+
+        def chase_call():
+            return sharded_chase(mesh, seed, bk)
+
+        dev, other = device_ms(chase_call, ("tile_roots_kernel",
+                                            "jump_kernel", "gather_kernel",
+                                            "pointer_kernel"))
+        out["mesh_chase"] = {"ms": timed(chase_call), "device_ms": dev,
+                             "other_ms": other}
+        srows = shard_rows(pmesh.shard(lay, rho), pmesh.shard(lay, codes), tg,
+                           True)
+        stop = pmesh.shard(lay, known == 2)
+
+        def walk_call():
+            return walk_sharded(mesh, starts, rho, codes, stop, tg, True, cap,
+                                rows=srows)
+
+        same(walk_call(), neargrid.neargrid_walk_cuda(rows, starts,
+                                                      rho.shape, cap, known),
+             "mesh_walk")
+        dev, other = device_ms(walk_call, ("walk_shard_kernel",
+                                           "stop_bitmap_kernel"))
+        out["mesh_walk"] = {"lanes": starts.numel(), "ms": timed(walk_call),
+                            "device_ms": dev, "other_ms": other}
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     shape = (cs.SIZE,) * 3
@@ -300,7 +369,7 @@ def main(argv=None):
         del density
     del atom, edge
     if only and not any(p.startswith(("roots", "walk", "check", "find",
-                                      "chase")) for p in only):
+                                      "chase", "mesh")) for p in only):
         print(json.dumps(out), flush=True)
         return
     for name, parent in cs.roots_inputs(shape, "cuda").items():
@@ -315,10 +384,16 @@ def main(argv=None):
     same(neargrid.neargrid_walk_cuda(rows, starts, shape, cap, known),
          neargrid.neargrid_walk_plain(rows, starts, shape, cap, known),
          "walk")
+    def walk1():
+        return neargrid.neargrid_walk_cuda(rows, starts, shape, cap, known)
+
     out["walk_iteration1"] = {
-        "lanes": starts.numel(),
-        "ms": timed(lambda: neargrid.neargrid_walk_cuda(rows, starts, shape,
-                                                        cap, known))}
+        "lanes": starts.numel(), "ms": timed(walk1),
+        "device_ms": device_ms(walk1, ("walk_kernel",
+                                       "stop_bitmap_kernel"))}
+    mesh = make_mesh(cs.MESH_SHARDS, device="cuda")
+    if want("mesh"):
+        mesh_cases(mesh, rho, codes, w, starts, known, tg, cap, rows)
     pos, done = neargrid.neargrid_walk_cuda(rows, starts, shape, cap, known)
     roots_ = pointer.resolve_roots_plain(
         stencil.parent_from_step_codes(codes)).reshape(-1)
@@ -330,24 +405,29 @@ def main(argv=None):
         known, 600_000, torch.Generator(device="cuda").manual_seed(5)),
         labels, is_max)
     del rows, known, roots_
-    last = []
-    with tempfile.TemporaryDirectory() as tmp, cs.last_edge_check(last):
-        cs.blob_bader(rho.cpu().numpy(), atoms, tmp)()
-    check("check_last", *last)
-    del last
+    if want("check_last"):
+        last = []
+        with tempfile.TemporaryDirectory() as tmp, cs.last_edge_check(last):
+            cs.blob_bader(rho.cpu().numpy(), atoms, tmp)()
+        check("check_last", *last)
+        del last
     for name, *case in cs.edge_check_inputs(
             rho, is_max, torch.Generator(device="cuda").manual_seed(6)):
         check(f"check_{name} {'x'.join(map(str, case[0].shape))}", *case)
     for name, *case in cs.edge_find_inputs(
             rho, is_max, torch.Generator(device="cuda").manual_seed(7)):
         find(f"find_{name} {'x'.join(map(str, case[0].shape))}", *case)
-    codes_b, values, _, _ = cs.mesh_chase_inputs(
-        rho, shape, make_mesh(cs.MESH_SHARDS, device="cuda"), w)
-    cs.chase_same(chase.chase_cuda(values, codes_b),
-                  chase.chase_plain(values, codes_b))
-    out["chase_shard_block"] = {"ms": timed(lambda: chase.chase_cuda(
-        values, codes_b))}
-    del rho, codes, labels, codes_b, values
+    if want("chase_shard_block"):
+        codes_b, values, _, _ = cs.mesh_chase_inputs(rho, shape, mesh, w)
+        cs.chase_same(chase.chase_cuda(values, codes_b),
+                      chase.chase_plain(values, codes_b))
+        out["chase_shard_block"] = {"ms": timed(lambda: chase.chase_cuda(
+            values, codes_b))}
+        del codes_b, values
+    del rho, codes, labels
+    if not want("walk_random_256") and not want("walk_full_256"):
+        print(json.dumps(out), flush=True)
+        return
     shape = (cs.FULL_SIZE,) * 3
     rho, _ = cs.blob_field(shape, "cuda")
     w = tuple(grid.distance_weights(cs.LATTICE, shape))
@@ -362,10 +442,15 @@ def main(argv=None):
     every = torch.arange(n, dtype=torch.int32, device="cuda")
     for name, starts in (("walk_random_256", random),
                          ("walk_full_256", every)):
+        if not want(name):
+            continue
         same(neargrid.neargrid_walk_cuda(rows, starts, shape, cap),
              neargrid.neargrid_walk_plain(rows, starts, shape, cap), name)
-        out[name] = {"lanes": starts.numel(), "ms": timed(
-            lambda: neargrid.neargrid_walk_cuda(rows, starts, shape, cap))}
+        def walk():
+            return neargrid.neargrid_walk_cuda(rows, starts, shape, cap)
+
+        out[name] = {"lanes": starts.numel(), "ms": timed(walk),
+                     "device_ms": device_ms(walk, ("walk_kernel",))}
     print(json.dumps(out), flush=True)
 
 

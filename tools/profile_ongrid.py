@@ -18,7 +18,8 @@ each hand-written kernel of ``pybader_tpu_torch/csrc``, every other kernel,
 the share of the wall time in which the device was busy, the sums of each
 op's kernels over their launches (``sums_ms``: edge_check, resolve_roots,
 charge_volume, edge_find, ongrid_step_codes, surface_min_d2,
-neargrid_rows, min_pair, and the off-path chase, neargrid_walk_shard,
+neargrid_rows, min_pair, and the off-path chase (with its parts
+chase_roots and chase_gather), neargrid_walk_shard, stop_bitmap,
 block_walk, nginit_codes, neargrid_qrows and neargrid_walk_q) and the
 profiled run's launches by wrapper (``launches``).
 ``--trace`` also writes the chrome trace.  ``--root`` profiles the port of another
@@ -64,9 +65,11 @@ HAND_WRITTEN = ("ongrid_step_codes_kernel", "nginit_codes_kernel",
                 "qrows_kernel", "rows_kernel",
                 "walk_kernel", "pointer_kernel", "gather_kernel",
                 "walk_shard_kernel", "stop_bitmap_kernel")
+# kinds named by more than one substring of the kernel name, tried first
+PARTS = {"chase_tile_roots": ("tile_roots_kernel", "CodeSource")}
 # kernels of one op, summed over its launches; on one device jump_kernel
 # runs only in the roots, on a mesh only in the chase (the mesh floods with
-# the chase)
+# the chase); the chase's parts also alone (chase_roots, chase_gather)
 SUMS = {"edge_check": ("check_flags_kernel", "check_near_kernel",
                        "edge_check_kernel"),
         "resolve_roots": ("jump_kernel", "tile_roots_kernel"),
@@ -79,8 +82,12 @@ SUMS = {"edge_check": ("check_flags_kernel", "check_near_kernel",
         "neargrid_rows": ("rows_march_kernel", "rows_kernel"),
         "min_pair": ("fill_int_kernel", "min_pair_kernel",
                      "min_pair_runs_kernel", "fill_pair_kernel"),
-        "chase": ("pointer_kernel", "jump_kernel", "gather_kernel"),
+        "chase": ("pointer_kernel", "chase_tile_roots", "jump_kernel",
+                  "gather_kernel"),
+        "chase_roots": ("chase_tile_roots", "jump_kernel"),
+        "chase_gather": ("gather_kernel",),
         "neargrid_walk_shard": ("walk_shard_kernel",),
+        "stop_bitmap": ("stop_bitmap_kernel",),
         "block_walk": ("block_walk_kernel",),
         "nginit_codes": ("nginit_codes_kernel",),
         "neargrid_qrows": ("qrows_kernel",),
@@ -106,6 +113,9 @@ def kind_of(name: str) -> str:
         return "memcpy other"
     if name.startswith("Memset"):
         return "memset"
+    for k, parts in PARTS.items():
+        if all(p in name for p in parts):
+            return k
     for k in HAND_WRITTEN:
         if k in name:
             return k
@@ -135,7 +145,7 @@ def breakdown(prof, wall_s: float) -> dict:
         "wall_s": wall_s,
         "busy_share": busy_us / (wall_s * 1e6),
         "hand_written_ms": sum(us for k, (_, us) in rows.items()
-                               if k in HAND_WRITTEN) / 1e3,
+                               if k in HAND_WRITTEN or k in PARTS) / 1e3,
         "kinds": {k: {"count": n, "ms": us / 1e3}
                   for k, (n, us) in sorted(rows.items())},
         "sums_ms": {op: sum(rows.get(k, (0, 0.0))[1] for k in ks) / 1e3
