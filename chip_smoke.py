@@ -46,10 +46,15 @@ Phases (one line of output each, or a few):
   6. qrows: the four kernels of the quantised-row walks at 384^3 on the
      same field: nginit_codes on the ongrid codes, neargrid_qrows (refinement
      gradient), neargrid_walk_q unscreened and screened on iteration 1's
-     padded edge bucket (stop at known == 2, the refinement cap), one
-     block_walk round on those lanes (PYBADER_TPU_BLOCK_STEPS steps), then
-     the whole block phase and the screened walk it feeds timed against
-     the exact walk of the same edges
+     padded edge bucket (stop at known == 2 as the bitmap the walks share,
+     the refinement cap) and at a cap of 3, one block_walk round on those
+     lanes (PYBADER_TPU_BLOCK_STEPS steps), then the whole block phase and
+     the screened walk it feeds timed against the exact walk of the same
+     edges, the q walker on the phase's hand-off (mostly done lanes) at
+     the cap and at 3, and block rounds of 1 and 24 steps on a 16x16x128
+     grid (one block) and a 32x16x128 grid; each walk bit for bit, with
+     its lanes, lanes that step and lane_steps / warp_steps, the share of
+     a one-thread-a-lane launch's lane-slots that step
   7. chase: the chase kernel (Pallas kernel 9) against its plain version
      (27-way roll-select passes) on the whole grid's ongrid codes at 384^3,
      seeded as labels_oneshot seeds it and with the one-step parents;
@@ -971,21 +976,104 @@ def state_equal(a, b):
             raise AssertionError("kernel and plain walk states differ")
 
 
-def q_walk_cost(lanes, st, screened):
-    """A q walk's bound from this run's data: the rows (and known bytes)
-    its lanes touch, each lane's state read and written once, and its f32
-    operations: 24 a lane-step (3 dequantising products, 3 + 3 rounding
-    sums and truncations twice, 3 + 3 + 3 dr sums), 26 more screened (12
-    absolute values, 6 differences, 4 minima, 2 compares, 2 sums).  The
-    plain version counts lane-steps and rows."""
-    state_bytes = 33 + (5 if screened else 0)
-    return bound(st["rows_touched"] * (8 + 1) + 2 * state_bytes * lanes,
-                 f32_ops=(50 if screened else 24) * st["lane_steps"])
+def q_walk_cost(state, out, st, live=None, stop=True):
+    """A q walk's or a block round's bound from this run's data, the input
+    ``state`` and output ``out``.  Bytes: every lane's done flag (and each
+    tile's block and live flag) read; the rest of the state (32 bytes a
+    lane, 37 screened) read for the lanes the function walks (not done;
+    in a live tile), and the whole state written for the lanes whose state
+    changed; for each row touched its 8 bytes of q-row and, with a stop
+    set, its bit of the stop bitmap.  Operations: 24 f32 a lane-step (3
+    dequantising products, 3 + 3 rounding sums and truncations twice, 3 +
+    3 + 3 dr sums), 26 more screened (12 absolute values, 6 differences, 4
+    minima, 2 compares, 2 sums).  The plain version counts lane-steps and
+    rows.  returns (cost, {"walk_lanes", "changed_lanes"})."""
+    k = state[0].numel()
+    screened = len(state) == 7
+    walk = ~state[4]
+    if live is not None:
+        walk &= live.repeat_interleave(k // max(live.numel(), 1))
+    changed = torch.zeros_like(walk)
+    for a, b in zip(state, out):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        changed |= (a != b).reshape(k, -1).any(1)
+    n_walk, n_changed = int(walk.sum()), int(changed.sum())
+    full = 33 + (5 if screened else 0)
+    nbytes = (k + (0 if live is None else 5 * live.numel())
+              + (full - 1) * n_walk + full * n_changed
+              + st["rows_touched"] * (8 + (0.125 if stop else 0)))
+    return (bound(nbytes, f32_ops=(50 if screened else 24)
+                  * st["lane_steps"]),
+            {"walk_lanes": n_walk, "changed_lanes": n_changed})
+
+
+def q_counts(st):
+    """A q walk's counts from its plain version's stats, with the share of
+    a one-thread-a-lane launch's lane-slots that step."""
+    share = st["lane_steps"] / max(st["warp_steps"], 1)
+    return (f"{st['stepped']} step, {st['lane_steps']} lane-steps (longest "
+            f"{st['longest']}), {st['rows_touched']} rows touched, "
+            f"lane_steps / warp_steps {st['lane_steps']} / "
+            f"{st['warp_steps']} = {share:.4f}")
+
+
+def q_case(name, state, kernel, plain):
+    """A q-walk kernel against its plain version, bit for bit, on one more
+    input; prints its lanes, counts and time."""
+    st = {}
+    want = plain(st)
+    state_equal(kernel(), want)
+    say("qrows", f"{name}: bit-identical, {state[0].numel()} lanes, "
+        f"{int((~state[4]).sum())} not done, {q_counts(st)}, kernel "
+        f"{time_ms(kernel):.3f} ms")
+    return want
+
+
+def block_grid_cases(seed):
+    """One block round at 1 and 24 steps, unscreened and screened, on a
+    16x16x128 grid (one block: every periodic wrap stays inside it) and a
+    32x16x128 grid (two blocks along x): a blob field's q-rows, a random
+    stop set of a fifteenth of the voxels, every voxel but the first 1000
+    of a random order as a start and 1000 padding lanes."""
+    from pybader_tpu_torch import grid, pipeline
+    from pybader_tpu_torch.ops import block_walk, neargrid
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    for shape in ((16, 16, 128), (32, 16, 128)):
+        rho, _ = blob_field(shape, DEVICE)
+        codes = pipeline.step_codes(
+            rho, None, tuple(grid.distance_weights(LATTICE, shape)))
+        tg = torch.as_tensor(grid.t_grad(LATTICE, shape), device=DEVICE)
+        qrows = neargrid.neargrid_qrows_cuda(rho, codes, tg, True)
+        known = torch.where(
+            torch.rand(shape, generator=gen, device=DEVICE) < 1 / 15, 2,
+            0).to(torch.int8)
+        n = rho.numel()
+        starts = torch.randperm(n, generator=gen, device=DEVICE).to(
+            torch.int32)
+        starts[:1000] = -1
+        bits = neargrid.stop_bitmap_cuda(known)
+        for steps in (1, 24):
+            for screened in (False, True):
+                state = neargrid.init_state(starts, screened)
+                order, blocks, live = block_walk.prep_round(state, shape)
+                state = tuple(a[order] for a in state)
+                q_case(f"block round {'x'.join(map(str, shape))}, {steps} "
+                       f"steps, screened={screened}", state,
+                       lambda: block_walk.block_round_cuda(
+                           qrows, state, blocks, live, shape, steps,
+                           stop=bits),
+                       lambda st: block_walk.block_round_plain(
+                           qrows, state, blocks, live, shape, steps, known,
+                           st))
 
 
 def qrows_phase(rho, shape, codes, labels, res):
     """The four quantised-row kernels against their plain versions on the
-    blob field, on the inputs refinement's first iteration gives them."""
+    blob field, on the inputs refinement's first iteration gives them, and
+    the two walkers on the block phase's hand-off, at a cap of 3 and on
+    grids of one and two blocks."""
     from pybader_tpu_torch import grid
     from pybader_tpu_torch.ops import block_walk, edges, neargrid, stencil
 
@@ -1006,6 +1094,8 @@ def qrows_phase(rho, shape, codes, labels, res):
         lambda: neargrid.neargrid_qrows_plain(rho, codes, tg, True), equal,
         "qrows", bound((8 + 1 + 8) * n, (rows_ops + 3) * n))
     known = edges.edge_find_cuda(labels, codes == 13)
+    # the kernels read the stop set as this bitmap, built once a walk
+    bits = neargrid.stop_bitmap_cuda(known)
     starts = torch.nonzero(known.reshape(-1) == -2).reshape(-1).to(
         torch.int32)
     lanes = neargrid.bucket_size(starts.numel())
@@ -1014,53 +1104,75 @@ def qrows_phase(rho, shape, codes, labels, res):
     for screened in (False, True):
         state = neargrid.init_state(padded, screened)
         st = {}
-        neargrid.neargrid_walk_q_plain(qrows, state, shape, cap, known, st)
+        out = neargrid.neargrid_walk_q_plain(qrows, state, shape, cap, known,
+                                             st)
         out = compare(
             "neargrid_walk_q", res,
             lambda: neargrid.neargrid_walk_q_cuda(qrows, state, shape, cap,
-                                                  known),
+                                                  stop=bits),
             lambda: neargrid.neargrid_walk_q_plain(qrows, state, shape, cap,
                                                    known),
-            state_equal, "qrows", q_walk_cost(lanes, st, screened))
+            state_equal, "qrows", q_walk_cost(state, out, st)[0])
         risky = f", {int(out[6].sum())} risky" if screened else ""
         say("qrows", f"walk_q screened={screened}: {starts.numel()} edges in "
-            f"{lanes} lanes, {st['lane_steps']} lane-steps, "
-            f"{st['rows_touched']} rows touched, {int((~out[4]).sum())} at "
-            f"the cap {cap}{risky}")
+            f"{lanes} lanes, {q_counts(st)}, {int((~out[4]).sum())} at the "
+            f"cap {cap}{risky}")
+    q_case(f"walk_q at a cap of 3, {starts.numel()} fresh edges", state,
+           lambda: neargrid.neargrid_walk_q_cuda(qrows, state, shape, 3,
+                                                 stop=bits),
+           lambda st: neargrid.neargrid_walk_q_plain(qrows, state, shape, 3,
+                                                     known, st))
     steps = int(os.environ.get("PYBADER_TPU_BLOCK_STEPS", "24"))
     order, blocks, live = block_walk.prep_round(state, shape)
     state = tuple(a[order] for a in state)
     st = {}
-    block_walk.block_round_plain(qrows, state, blocks, live, shape, steps,
-                                 known, st)
+    out = block_walk.block_round_plain(qrows, state, blocks, live, shape,
+                                       steps, known, st)
+    cost, counts = q_walk_cost(state, out, st, live)
     out = compare(
         "block_walk", res,
         lambda: block_walk.block_round_cuda(qrows, state, blocks, live, shape,
-                                            steps, known),
+                                            steps, stop=bits),
         lambda: block_walk.block_round_plain(qrows, state, blocks, live,
                                              shape, steps, known),
-        state_equal, "qrows", q_walk_cost(lanes, st, True))
+        state_equal, "qrows", cost)
     say("qrows", f"block round ({steps} steps, {int(live.sum())} live tiles "
-        f"of {live.numel()}): {int(out[4].sum() - state[4].sum())} lanes "
-        f"retired, {st['lane_steps']} lane-steps, {st['rows_touched']} rows "
-        f"touched")
+        f"of {live.numel()}, {counts['walk_lanes']} lanes to walk): "
+        f"{int(out[4].sum() - state[4].sum())} lanes retired, "
+        f"{q_counts(st)}")
     # the whole block phase and the screened walk it feeds, against the
-    # exact walk the default path runs on the same edges
+    # exact walk the default path runs on the same edges; then the q
+    # walker on the phase's hand-off (mostly done lanes: the variant calls'
+    # input), at the cap and at a cap of 3
     rows = neargrid.neargrid_rows_cuda(rho, codes, tg_host, True)
     exact_ms = time_ms(lambda: neargrid.neargrid_walk_cuda(
         rows, starts, shape, cap, known))
     with environ({"PYBADER_TPU_BLOCK_WALK": "1"}):
         st = {}
-        block_walk.block_phase(qrows, neargrid.init_state(padded, True),
-                               shape, known, stats=st)
-        phase_ms = time_ms(lambda: block_walk.block_phase(
-            qrows, neargrid.init_state(padded, True), shape, known))
+        # in the rounds' last order, as walk_q hands the lanes on
+        handed, _ = block_walk.block_rounds(
+            qrows, neargrid.init_state(padded, True), shape, stats=st,
+            stop=bits)
+        # the phase as walk_q runs it: its rounds on the bitmap, then the
+        # lanes back in their order
+        phase_ms = time_ms(lambda: block_walk.unsort(
+            *block_walk.block_rounds(
+                qrows, neargrid.init_state(padded, True), shape,
+                stop=bits)))
         walk_ms = time_ms(lambda: neargrid.walk_screened(
             qrows, lambda: rows, padded, shape, cap, known))
     alive = st["block_rounds"][0]
     say("qrows", f"block phase {phase_ms:.3f} ms ({len(alive)} rounds, "
         f"{alive[-1]} of {starts.numel()} lanes left), screened walk with "
         f"it {walk_ms:.3f} ms, exact walk {exact_ms:.3f} ms")
+    for c in (cap, 3):
+        q_case(f"walk_q on the block phase's hand-off, cap {c}", handed,
+               lambda: neargrid.neargrid_walk_q_cuda(
+                   qrows, handed, shape, c, stop=bits),
+               lambda st: neargrid.neargrid_walk_q_plain(
+                   qrows, handed, shape, c, known, st))
+    del rows, handed
+    block_grid_cases(9)
 
 
 def noise_surface_inputs(rho, labels, maxima, atoms_cart):

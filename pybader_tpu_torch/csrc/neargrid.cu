@@ -7,9 +7,10 @@
 // driven by walk (:907), and the quantised-row walks _walk_segment_q (:238)
 // and _walk_segment_qs (:337).  The JAX drain loop's segments and compaction
 // schedule the walks for the TPU without changing their results; here a
-// thread walks a lane to its end in one launch (the exact walker then takes
-// the next lane).  The shard walker replaces
-// the mesh walker of pybader_tpu/parallel/walk.py:68 (walk_sharded).
+// thread walks a lane to its end in one launch and then takes the next
+// lane (walk.cuh's walk_lanes, for every walker).  The shard walker
+// replaces the mesh walker of pybader_tpu/parallel/walk.py:68
+// (walk_sharded).
 //
 // Exact row layout, 32 bytes, one per voxel, so a walker step reads one
 // sector:
@@ -446,49 +447,77 @@ walk_shard_kernel(ShardWalk w, unsigned long long* __restrict__ next,
 }
 
 // Resume quantised-row walks (state in place) for up to max_steps steps:
-// the exact walker's loop on 8-byte q-rows, f32 dr, the stop set read from
-// known == 2; for the screened walk also the error bound and risky flag.
-// Bound: the dependent 8-byte row gathers, as walk_kernel; one thread a
-// lane.
+// qwalk.cuh's step on 8-byte q-rows, f32 dr, the stop set from the bitmap
+// of stop_bitmap_kernel; for the screened walk also the error bound and
+// the risky flag.  A lane stops on code 13 or a stop bit; after max_steps
+// steps one more fetch decides done, and a lane that is not done keeps its
+// state for the caller.
+//
+// Bound: the dependent 8-byte row gathers, as walk_kernel.  The lanes the
+// hybrid's variants hand this walker have mostly ended in the block phase
+// (0.1-1.0 M of 0.8-7.3 M lanes still walk at 384^3), and the rest walk up
+// to the cap.  So the design is walk_kernel's: persistent lanes with refill
+// (walk.cuh's walk_lanes), where a done lane (padding, or retired in the
+// block phase) takes no thread (start() is false) and a warp does not wait
+// on its longest lane.  The host passes the lanes up to the last one not
+// done and sizes a warp's claim to the share of them that walks, about a
+// warp's worth a claim; walk_q hands the lanes on in the block rounds'
+// last order, where those still walking come first.  The stop bitmap is
+// read beside the row and built once a walk (ops/neargrid.py walk_q) for
+// the block rounds and this walker.
 template <bool kScreened>
-__global__ void walk_q_kernel(const int2* __restrict__ qrows,
-                              const signed char* __restrict__ known,
-                              int* __restrict__ pos, int* __restrict__ prev,
-                              int* __restrict__ hist, float* __restrict__ dr,
-                              unsigned char* __restrict__ done,
-                              float* __restrict__ err,
-                              unsigned char* __restrict__ risky, long long k,
-                              int nx, int ny, int nz, int max_steps) {
-    const long long lane =
-        static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (lane >= k || done[lane]) return;
-    pb::QLane s = pb::load_lane<kScreened>(lane, pos, prev, hist, dr, err,
-                                           risky);
-    for (int step = 0;; ++step) {
-        const int2 w = __ldg(&qrows[s.pos]);
-        if (pb::q_stops(w.y, known, s.pos)) {
-            done[lane] = 1;
-            break;
-        }
-        if (step == max_steps) break;
-        pb::q_advance<kScreened>(w.x, w.y, s, nx, ny, nz);
+struct QGridWalk {
+    const int2* __restrict__ qrows;
+    const unsigned* __restrict__ stop;
+    const int* steps;  // the block's table of q steps (shared memory)
+    pb::QState st;
+    int nx, ny, nz, nyz, max_steps;
+    pb::QLane s;
+    int taken;
+    int x, y, z;  // the coordinates of s.pos
+
+    __device__ __forceinline__ bool start(long long lane) {
+        if (st.done[lane]) return false;
+        s = st.load<kScreened>(lane);
+        pb::q_coords(s.pos, nyz, nz, x, y, z);
+        taken = 0;
+        return true;
     }
-    pb::store_lane<kScreened>(lane, s, pos, prev, hist, dr, err, risky);
+
+    __device__ __forceinline__ bool step(long long lane) {
+        int2 w;
+        const bool stopped = pb::q_fetch(qrows, stop, s.pos, w);
+        if (stopped || taken == max_steps) {
+            if (stopped) st.done[lane] = 1;
+            st.store<kScreened>(lane, s, taken);
+            return true;
+        }
+        pb::q_advance<kScreened>(w, steps, x, y, z, s, nx, ny, nz);
+        ++taken;
+        return false;
+    }
+};
+
+template <bool kScreened>
+__global__ void __launch_bounds__(kWalkThreads)
+walk_q_kernel(QGridWalk<kScreened> w, unsigned long long* __restrict__ next,
+              long long k, long long batch) {
+    __shared__ int steps[32];
+    pb::fill_q_steps(steps);
+    w.steps = steps;
+    pb::walk_lanes(w, next, k, batch);
 }
 
 template <bool kScreened>
-void launch_walk_q(unsigned int blocks, void* stream, void* qrows,
-                   void* known, void* pos, void* prev, void* hist, void* dr,
-                   void* done, void* err, void* risky, long long k, int nx,
-                   int ny, int nz, int max_steps) {
-    walk_q_kernel<kScreened><<<blocks, pb::kThreads, 0,
-                               pb::as_stream(stream)>>>(
-        static_cast<const int2*>(qrows),
-        static_cast<const signed char*>(known), static_cast<int*>(pos),
-        static_cast<int*>(prev), static_cast<int*>(hist),
-        static_cast<float*>(dr), static_cast<unsigned char*>(done),
-        static_cast<float*>(err), static_cast<unsigned char*>(risky), k, nx,
-        ny, nz, max_steps);
+void launch_walk_q(const QGridWalk<kScreened>& w, void* next, long long k,
+                   long long batch, int device, void* stream) {
+    const long long want = (k + kWalkThreads - 1) / kWalkThreads;
+    const int cap = pb::resident_blocks(walk_q_kernel<kScreened>,
+                                        kWalkThreads, 0, device);
+    walk_q_kernel<kScreened><<<static_cast<unsigned int>(want < cap ? want
+                                                                    : cap),
+                               kWalkThreads, 0, pb::as_stream(stream)>>>(
+        w, static_cast<unsigned long long*>(next), k, batch);
 }
 
 }  // namespace
@@ -585,22 +614,36 @@ PB_EXPORT int pb_neargrid_walk_occupancy(int shard, int device, void* out) {
                  : walk_occupancy(walk_kernel, device, o);
 }
 
-// err and risky are null for the unscreened walk.
-PB_EXPORT int pb_neargrid_walk_q(void* qrows, void* known, void* pos,
+// The state (pos, prev, hist (k, 3), dr (k, 3), done, err, risky) is
+// updated in place; err and risky are null for the unscreened walk.  stop:
+// the bitmap of pb_stop_bitmap, or null.  next: a zeroed 64-bit counter,
+// the walk's claim of lanes, batch lanes a warp's claim (a multiple of 32).
+PB_EXPORT int pb_neargrid_walk_q(void* qrows, void* stop, void* pos,
                                  void* prev, void* hist, void* dr, void* done,
-                                 void* err, void* risky, long long k, int nx,
-                                 int ny, int nz, int max_steps, int device,
+                                 void* err, void* risky, void* next,
+                                 long long k, long long batch, int nx, int ny,
+                                 int nz, int max_steps, int device,
                                  void* stream) {
     cudaSetDevice(device);
     if (k <= 0) return static_cast<int>(cudaGetLastError());
-    const unsigned int blocks =
-        static_cast<unsigned int>((k + pb::kThreads - 1) / pb::kThreads);
+    const pb::QState st{static_cast<int*>(pos),
+                        static_cast<int*>(prev),
+                        static_cast<int*>(hist),
+                        static_cast<float*>(dr),
+                        static_cast<unsigned char*>(done),
+                        static_cast<float*>(err),
+                        static_cast<unsigned char*>(risky)};
+    const pb::QLane s0{0, -1, -1, -1, -1, 0.0f, 0.0f, 0.0f, 0.0f, false};
+    const auto* q = static_cast<const int2*>(qrows);
+    const auto* bits = static_cast<const unsigned*>(stop);
     if (err != nullptr)
-        launch_walk_q<true>(blocks, stream, qrows, known, pos, prev, hist, dr,
-                            done, err, risky, k, nx, ny, nz, max_steps);
+        launch_walk_q(QGridWalk<true>{q, bits, nullptr, st, nx, ny, nz,
+                                      ny * nz, max_steps, s0},
+                      next, k, batch, device, stream);
     else
-        launch_walk_q<false>(blocks, stream, qrows, known, pos, prev, hist,
-                             dr, done, err, risky, k, nx, ny, nz, max_steps);
+        launch_walk_q(QGridWalk<false>{q, bits, nullptr, st, nx, ny, nz,
+                                       ny * nz, max_steps, s0},
+                      next, k, batch, device, stream);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
-// One step of the quantised-row walk, shared by the q walker (neargrid.cu)
-// and the block walker (block_walk.cu).
+// The quantised-row walk: a lane's step, shared by the q walker
+// (neargrid.cu) and the block walker (block_walk.cu), whose lanes run on
+// walk.cuh's persistent lanes with refill.
 //
 // The arithmetic of JAX's _walk_segment_q / _walk_segment_qs
 // (pybader_tpu/ops/neargrid.py:238, :337) and of the block kernel
@@ -9,10 +10,27 @@
 // fixed point, g_i = float(q_i) * float(1/262143).  Everything is f32, each
 // sum and product rounded on its own (__fadd_rn, __fmul_rn, -fmad=false),
 // so the kernels equal the plain PyTorch versions bit for bit.
+//
+// Bound: a step's address comes from the step before, so both walks wait
+// on dependent 8-byte row gathers; the integer work of a step sits on that
+// chain.  So a step
+//   - reads its stop bit from the 1-bit-a-voxel bitmap of neargrid.cu's
+//     stop_bitmap_kernel (7.1 MB at 384^3, which stays in the 50 MB L2),
+//     issued beside the row, not the int8 known grid (57 MB);
+//   - keeps the lane's coordinates beside its position and steps them
+//     with it, so no division sits on the chain (one at a lane's start);
+//     the block test and the advance share them.  Dividing afresh each
+//     step, after the row's load is issued, took 5-9 % longer (PERF.md);
+//   - takes the ongrid target from a table of steps in shared memory and
+//     walk.cuh's wrap_near (a compare and an add an axis), where the first
+//     design took code / 9, (code / 3) % 3, code % 3 and six modulo wraps.
+//     |g| <= 1 for rows normalised to max |g_i| = 1, so a step moves a
+//     coordinate by at most 2 and wrap_near's premise holds.
 #pragma once
 
 #include "common.cuh"
 #include "grad.cuh"
+#include "walk.cuh"
 
 namespace pb {
 
@@ -37,35 +55,60 @@ __device__ __forceinline__ float round_away_f(float v) {
     return truncf(v > 0.0f ? __fadd_rn(v, 0.5f) : __fsub_rn(v, 0.5f));
 }
 
-// A walk ends on a maximum (step code 13) or a known == 2 voxel.
-__device__ __forceinline__ bool q_stops(int w1, const signed char* known,
-                                        int pos) {
-    return ((w1 >> 25) & 31) == 13 || (known != nullptr && known[pos] == 2);
-}
-
 __device__ __forceinline__ float dist_half(float v) {
     return fabsf(__fsub_rn(fabsf(v), 0.5f));
 }
 
-// Step a lane that did not stop at s.pos, whose row words are (w0, w1).
+// The table of ongrid steps, code -> (code / 9) | (code / 3 % 3) << 2 |
+// (code % 3) << 4 (each axis' step plus one), for all 32 five-bit codes:
+// the rows hold 0..26, and 27..31 keep the arithmetic of JAX's decode.
+// Filled by the first warp of a block before its walk.
+__device__ __forceinline__ void fill_q_steps(int* steps) {
+    if (threadIdx.x < 32)
+        steps[threadIdx.x] = threadIdx.x / 9 | (threadIdx.x / 3 % 3) << 2 |
+                             (threadIdx.x % 3) << 4;
+    __syncthreads();
+}
+
+// The row words of voxel pos into w and whether the walk stops there: a
+// maximum (step code 13) or a bit of the stop bitmap (null: no stop set).
+// Both loads are issued before either is used.
+__device__ __forceinline__ bool q_fetch(const int2* __restrict__ qrows,
+                                        const unsigned* __restrict__ stop,
+                                        int pos, int2& w) {
+    const unsigned word = stop != nullptr ? __ldg(&stop[pos >> 5]) : 0u;
+    w = __ldg(&qrows[pos]);
+    return ((w.y >> 25) & 31) == 13 || ((word >> (pos & 31)) & 1u);
+}
+
+// (x, y, z) of the flat index pos of an (nx, ny, nz) grid, nyz = ny * nz.
+__device__ __forceinline__ void q_coords(int pos, int nyz, int nz, int& x,
+                                         int& y, int& z) {
+    x = pos / nyz;
+    const int rem = pos - x * nyz;
+    y = rem / nz;
+    z = rem - y * nz;
+}
+
+// Step a lane that did not stop at s.pos = (x, y, z), whose row words are
+// w; steps: the table of fill_q_steps.  (x, y, z) become the coordinates
+// of the next position.
 template <bool kScreened>
-__device__ __forceinline__ void q_advance(int w0, int w1, QLane& s, int nx,
+__device__ __forceinline__ void q_advance(int2 w, const int* steps, int& x,
+                                          int& y, int& z, QLane& s, int nx,
                                           int ny, int nz) {
-    const int code = (w1 >> 25) & 31;
-    const bool ongrid = (w1 & (1 << 30)) != 0;
-    const int q1 = ((w0 >> 19) & 0x1FFF) | ((w1 & 0x3F) << 13);
-    const float g0 = __fmul_rn(static_cast<float>(sext19(w0)), kInvQScale);
+    const int code = (w.y >> 25) & 31;
+    const bool ongrid = (w.y & (1 << 30)) != 0;
+    const int q1 = ((w.x >> 19) & 0x1FFF) | ((w.y & 0x3F) << 13);
+    const float g0 = __fmul_rn(static_cast<float>(sext19(w.x)), kInvQScale);
     const float g1 = __fmul_rn(static_cast<float>(sext19(q1)), kInvQScale);
-    const float g2 = __fmul_rn(static_cast<float>(sext19(w1 >> 6)),
+    const float g2 = __fmul_rn(static_cast<float>(sext19(w.y >> 6)),
                                kInvQScale);
-    const int nyz = ny * nz;
-    const int x = s.pos / nyz;
-    const int rem = s.pos - x * nyz;
-    const int y = rem / nz;
-    const int z = rem - y * nz;
-    const int og = (wrap(x + code / 9 - 1, nx) * ny +
-                    wrap(y + (code / 3) % 3 - 1, ny)) * nz +
-                   wrap(z + code % 3 - 1, nz);
+    const int d = steps[code];
+    const int ax = wrap_near(x + (d & 3) - 1, nx);
+    const int ay = wrap_near(y + ((d >> 2) & 3) - 1, ny);
+    const int az = wrap_near(z + (d >> 4) - 1, nz);
+    const int og = (ax * ny + ay) * nz + az;
     const float i0 = round_away_f(g0), i1 = round_away_f(g1),
                 i2 = round_away_f(g2);
     const float e0 = __fsub_rn(__fadd_rn(s.d0, g0), i0);
@@ -73,16 +116,21 @@ __device__ __forceinline__ void q_advance(int w0, int w1, QLane& s, int nx,
     const float e2 = __fsub_rn(__fadd_rn(s.d2, g2), i2);
     const float c0 = round_away_f(e0), c1 = round_away_f(e1),
                 c2 = round_away_f(e2);
-    const int sx = static_cast<int>(i0) + static_cast<int>(c0);
-    const int sy = static_cast<int>(i1) + static_cast<int>(c1);
-    const int sz = static_cast<int>(i2) + static_cast<int>(c2);
-    int nxt =
-        (wrap(x + sx, nx) * ny + wrap(y + sy, ny)) * nz + wrap(z + sz, nz);
+    const int tx = wrap_near(
+        x + static_cast<int>(i0) + static_cast<int>(c0), nx);
+    const int ty = wrap_near(
+        y + static_cast<int>(i1) + static_cast<int>(c1), ny);
+    const int tz = wrap_near(
+        z + static_cast<int>(i2) + static_cast<int>(c2), nz);
+    int nxt = (tx * ny + ty) * nz + tz;
     if (ongrid) nxt = og;
     const bool revisit = nxt == s.pos || nxt == s.prev || nxt == s.h0 ||
                          nxt == s.h1 || nxt == s.h2;
-    if (revisit) nxt = og;
     const bool reset = ongrid || revisit;
+    if (reset) nxt = og;
+    x = reset ? ax : tx;
+    y = reset ? ay : ty;
+    z = reset ? az : tz;
     if (kScreened) {
         // round_away is discontinuous only at |v| = 0.5: a decision within
         // the error bound of it may differ from the exact-row walk's
@@ -104,43 +152,52 @@ __device__ __forceinline__ void q_advance(int w0, int w1, QLane& s, int nx,
     s.pos = nxt;
 }
 
-// Load and store a lane of the state arrays (hist and dr are (K, 3)).
-template <bool kScreened>
-__device__ __forceinline__ QLane load_lane(long long lane, const int* pos,
-                                           const int* prev, const int* hist,
-                                           const float* dr, const float* err,
-                                           const unsigned char* risky) {
-    QLane s;
-    s.pos = pos[lane];
-    s.prev = prev[lane];
-    s.h0 = hist[3 * lane];
-    s.h1 = hist[3 * lane + 1];
-    s.h2 = hist[3 * lane + 2];
-    s.d0 = dr[3 * lane];
-    s.d1 = dr[3 * lane + 1];
-    s.d2 = dr[3 * lane + 2];
-    s.err = kScreened ? err[lane] : 0.0f;
-    s.risky = kScreened ? risky[lane] != 0 : false;
-    return s;
-}
+// The state arrays of a q walk (hist and dr are (K, 3); err and risky
+// null for the unscreened walk), updated in place.
+struct QState {
+    int* __restrict__ pos;
+    int* __restrict__ prev;
+    int* __restrict__ hist;
+    float* __restrict__ dr;
+    unsigned char* __restrict__ done;
+    float* __restrict__ err;
+    unsigned char* __restrict__ risky;
 
-template <bool kScreened>
-__device__ __forceinline__ void store_lane(long long lane, const QLane& s,
-                                           int* pos, int* prev, int* hist,
-                                           float* dr, float* err,
-                                           unsigned char* risky) {
-    pos[lane] = s.pos;
-    prev[lane] = s.prev;
-    hist[3 * lane] = s.h0;
-    hist[3 * lane + 1] = s.h1;
-    hist[3 * lane + 2] = s.h2;
-    dr[3 * lane] = s.d0;
-    dr[3 * lane + 1] = s.d1;
-    dr[3 * lane + 2] = s.d2;
-    if (kScreened) {
-        err[lane] = s.err;
-        risky[lane] = s.risky ? 1 : 0;
+    template <bool kScreened>
+    __device__ __forceinline__ QLane load(long long lane) const {
+        QLane s;
+        s.pos = pos[lane];
+        s.prev = prev[lane];
+        s.h0 = hist[3 * lane];
+        s.h1 = hist[3 * lane + 1];
+        s.h2 = hist[3 * lane + 2];
+        s.d0 = dr[3 * lane];
+        s.d1 = dr[3 * lane + 1];
+        s.d2 = dr[3 * lane + 2];
+        s.err = kScreened ? err[lane] : 0.0f;
+        s.risky = kScreened ? risky[lane] != 0 : false;
+        return s;
     }
-}
+
+    // A lane's state changes only when it steps: one that took no step
+    // stores nothing (the arrays already hold it).
+    template <bool kScreened>
+    __device__ __forceinline__ void store(long long lane, const QLane& s,
+                                          int taken) const {
+        if (taken == 0) return;
+        pos[lane] = s.pos;
+        prev[lane] = s.prev;
+        hist[3 * lane] = s.h0;
+        hist[3 * lane + 1] = s.h1;
+        hist[3 * lane + 2] = s.h2;
+        dr[3 * lane] = s.d0;
+        dr[3 * lane + 1] = s.d1;
+        dr[3 * lane + 2] = s.d2;
+        if (kScreened) {
+            err[lane] = s.err;
+            risky[lane] = s.risky ? 1 : 0;
+        }
+    }
+};
 
 }  // namespace pb

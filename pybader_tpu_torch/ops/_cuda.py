@@ -62,10 +62,8 @@ _ENTRIES = {
     "pb_stop_bitmap": (_P, _P, _L, _I, _I, _P),
     "pb_neargrid_walk_occupancy": (_I, _I, _P),
     "pb_neargrid_qrows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "pb_neargrid_walk_q": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
-                           _I, _I, _P),
-    "pb_block_walk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
-                      _I, _I, _I, _P),
+    "pb_neargrid_walk_q": (*(_P,) * 10, _L, _L, _I, _I, _I, _I, _I, _P),
+    "pb_block_walk": (*(_P,) * 12, _L, _L, _I, _I, _I, _I, _I, _P),
     "pb_nginit_codes": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pb_chase_roots": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P),
     "pb_chase_gather": (_P, _P, _P, _P, *(_I,) * 5, _I, _P),

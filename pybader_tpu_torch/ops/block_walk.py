@@ -17,7 +17,8 @@ keeps all of these rules bit for bit; they are semantics, not TPU layout.
 JAX stages each block's q-rows into VMEM as a (256, 128) table
 (``build_tables``); 256 KB does not fit one H100 block's shared memory, so
 the kernel reads the rows in place from device memory, where a tile's
-block stays in L2.
+block stays in L2, and walks the lanes of a round on persistent threads
+that take the next lane as theirs freeze.
 
 Env, read at call time:
     PYBADER_TPU_BLOCK_WALK=1   run the phase (off by default, as in JAX)
@@ -32,7 +33,7 @@ import torch
 from pybader_tpu_torch.ops import _cuda, neargrid
 
 BX, BY, BZ = 16, 16, 128  # block of 32768 voxels
-TILE = 1024               # lanes a tile (one CUDA block)
+TILE = 1024               # lanes a tile
 _MIN_LANES = 1 << 17      # below this JAX's global drain tail wins
 
 
@@ -75,16 +76,19 @@ def prep_round(state, shape):
     return order, blk.to(torch.int32), live
 
 
-def block_round(qrows, state, blocks, live, shape, steps: int, known=None):
+def block_round(qrows, state, blocks, live, shape, steps: int, known=None,
+                *, stop=None):
     """One round on a block-sorted state: every lane of a live tile that
     is inside its tile's block and not done takes up to ``steps`` q-walk
     steps, freezing when it stops or leaves the block; no fetch follows
     the last step.  The state has 5 fields, or 7 for the screened walk
     (:func:`neargrid.init_state`).  Returns the new state; the input is
-    kept."""
-    if _cuda.on_cuda(qrows):
+    kept.  ``stop``: in place of ``known``, its bitmap
+    (:func:`neargrid.stop_bitmap_cuda`) built once for all rounds; only
+    the kernel reads it, so it takes CUDA tensors."""
+    if _cuda.on_cuda(qrows) or stop is not None:
         return block_round_cuda(qrows, state, blocks, live, shape, steps,
-                                known)
+                                known, stop=stop)
     return block_round_plain(qrows, state, blocks, live, shape, steps, known)
 
 
@@ -109,28 +113,39 @@ def block_round_plain(qrows, state, blocks, live, shape, steps: int,
 
 
 def block_round_cuda(qrows, state, blocks, live, shape, steps: int,
-                     known=None):
+                     known=None, *, stop=None):
     """Launch ``pb_block_walk`` (csrc/block_walk.cu) on a copy of the
-    state."""
-    out = neargrid.check_q_state(qrows, state, shape, known)
-    ntiles = out[0].numel() // TILE
-    if ntiles * TILE != out[0].numel():
-        raise ValueError(f"state: {out[0].numel()} lanes is not a whole "
-                         f"number of {TILE}-lane tiles")
+    state, with ``known`` as the bitmap of
+    :func:`neargrid.stop_bitmap_cuda`.  ``stop``: in place of ``known``,
+    that bitmap, built by the caller once for all rounds of a walk.
+    The kernel takes the lanes up to the end of the last live tile; no
+    launch when no tile is live."""
+    bits = neargrid.stop_bits(shape, known, stop)
+    k = state[0].numel()
+    ntiles = k // TILE
+    if ntiles * TILE != k:
+        raise ValueError(f"state: {k} lanes is not a whole number of "
+                         f"{TILE}-lane tiles")
     if not conforms(shape):
         raise ValueError(f"shape {tuple(shape)} is not made of whole "
                          f"{BX}x{BY}x{BZ} blocks")
     _cuda.check(blocks, torch.int32, "blocks", (ntiles,))
     _cuda.check(live, torch.bool, "live", (ntiles,))
+
+    out, last = neargrid.check_q_state(
+        qrows, state, shape, known, lambda s: [neargrid.last_true(live)])
+    if not last or not last[0]:
+        return out
     screened = len(out) == 7
     nx, ny, nz = shape
+    claimed = torch.zeros((1,), dtype=torch.int64, device=qrows.device)
     _cuda.call("pb_block_walk", qrows.data_ptr(),
-               None if known is None else known.data_ptr(),
+               None if bits is None else bits.data_ptr(),
                blocks.data_ptr(), live.data_ptr(),
                *(a.data_ptr() for a in out[:5]),
                out[5].data_ptr() if screened else None,
-               out[6].data_ptr() if screened else None,
-               ntiles, nx, ny, nz, int(steps),
+               out[6].data_ptr() if screened else None, claimed.data_ptr(),
+               last[0] * TILE, 32, nx, ny, nz, int(steps),
                qrows.device.index or 0, _cuda.stream(qrows))
     _cuda.launches["block_walk"] += 1
     return out
@@ -148,10 +163,22 @@ def block_phase(qrows, state, shape, known=None, steps: int = 0,
     ``stats``, if a dict, gets the live count after each round appended as
     one list to ``stats['block_rounds']``.  returns the new state.
     """
+    state, order = block_rounds(qrows, state, shape, known, steps,
+                                max_rounds, min_alive, stats)
+    return state if order is None else unsort(state, order)
+
+
+def block_rounds(qrows, state, shape, known=None, steps: int = 0,
+                 max_rounds: int = 12, min_alive: int = 32768, stats=None,
+                 *, stop=None):
+    """:func:`block_phase` without the last step: returns the state in
+    the last round's order (the lanes not done before it come first,
+    sorted by block) and that order, the lane each position holds (None
+    where no round ran).  ``stop``: as :func:`block_round` takes it."""
     steps = steps or int(os.environ.get("PYBADER_TPU_BLOCK_STEPS", "24"))
     k0 = state[0].numel()
     if k0 == 0 or k0 % TILE:
-        return state
+        return state, None
     ord_total = torch.arange(k0, device=state[0].device)
     last_alive = float(k0)
     slow = 0
@@ -160,7 +187,8 @@ def block_phase(qrows, state, shape, known=None, steps: int = 0,
         order, blocks, live = prep_round(state, shape)
         state = tuple(a[order] for a in state)
         ord_total = ord_total[order]
-        state = block_round(qrows, state, blocks, live, shape, steps, known)
+        state = block_round(qrows, state, blocks, live, shape, steps, known,
+                            stop=stop)
         n_alive = int((~state[4]).sum())
         alive_log.append(n_alive)
         if n_alive <= min_alive:
@@ -174,7 +202,12 @@ def block_phase(qrows, state, shape, known=None, steps: int = 0,
         last_alive = float(max(n_alive, 1))
     if stats is not None:
         stats.setdefault("block_rounds", []).append(alive_log)
+    return state, ord_total
+
+
+def unsort(state, order):
+    """A state of :func:`block_rounds` back in lane order."""
     out = tuple(torch.empty_like(a) for a in state)
     for o, a in zip(out, state):
-        o[ord_total] = a
+        o[order] = a
     return out

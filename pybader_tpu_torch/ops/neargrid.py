@@ -27,6 +27,10 @@ Quantised rows are JAX's two int32 words, bit for bit (19-bit components
 JAX's own q-rows feed the port's walkers in the tests.  JAX bakes the stop
 set into the sign bit; the port's walkers read it from ``known == 2``
 instead, as the exact walker does, and its q-rows never carry the bit.
+On the card the q walker and the block rounds read it as the bitmap of
+:func:`stop_bitmap_cuda`, which :func:`walk_q` builds once for all of a
+walk's launches and hands them, in place of ``known``, through the
+kernels' ``stop`` keyword.
 
 The rows are built without fused multiply-adds in JAX's accumulation order,
 so the kernel and the plain version agree bit for bit.  XLA's CPU backend
@@ -580,7 +584,7 @@ def init_state(starts: torch.Tensor, screened: bool = False):
 
 
 def neargrid_walk_q(qrows: torch.Tensor, state, shape, max_steps: int,
-                    known: torch.Tensor | None = None):
+                    known: torch.Tensor | None = None, *, stop=None):
     """Resume quantised-row walks for up to ``max_steps`` steps.
 
     JAX's ``_walk_segment_q`` for a 5-field ``state`` (:func:`init_state`)
@@ -593,9 +597,14 @@ def neargrid_walk_q(qrows: torch.Tensor, state, shape, max_steps: int,
     :data:`QS_EPS` a step, and sets ``risky`` once a rounding decision
     comes within it of its 0.5 threshold.  After the last step one more
     fetch decides ``done``.  Returns the new state; the input is kept.
+
+    ``stop``: in place of ``known``, its bitmap (:func:`stop_bitmap_cuda`)
+    that the caller built once for several walks; only the kernel reads
+    it, so it takes CUDA tensors.
     """
-    if _cuda.on_cuda(qrows):
-        return neargrid_walk_q_cuda(qrows, state, shape, max_steps, known)
+    if _cuda.on_cuda(qrows) or stop is not None:
+        return neargrid_walk_q_cuda(qrows, state, shape, max_steps, known,
+                                    stop=stop)
     return neargrid_walk_q_plain(qrows, state, shape, max_steps, known)
 
 
@@ -647,8 +656,9 @@ def neargrid_walk_q_plain(qrows, state, shape, max_steps: int, known=None,
                           stats=None, origin=None):
     """Plain PyTorch :func:`neargrid_walk_q`: live lanes step in lockstep
     and leave the batch as they finish.  ``stats``, if a dict, receives
-    ``lane_steps`` and ``rows_touched`` as :func:`neargrid_walk_plain`
-    counts them.
+    ``lane_steps``, ``rows_touched`` and ``warp_steps`` as
+    :func:`neargrid_walk_plain` counts them, ``longest`` (the most steps
+    a lane took) and ``stepped`` (the lanes that took a step).
 
     ``origin``: optional (K, 3) int64 corner of the 16x16x128 block each
     lane may walk in, with -1 rows for lanes that must not move (the block
@@ -667,8 +677,12 @@ def neargrid_walk_q_plain(qrows, state, shape, max_steps: int, known=None,
     if screened:
         cur += [out[5][lane], out[6][lane]]
     org = None if origin is None else origin[lane]
-    touched = None if stats is None else torch.zeros(
-        qrows.shape[0], dtype=torch.bool, device=qrows.device)
+    touched = taken = None
+    if stats is not None:
+        touched = torch.zeros(qrows.shape[0], dtype=torch.bool,
+                              device=qrows.device)
+        taken = torch.zeros(done.numel(), dtype=torch.long,
+                            device=done.device)
     lane_steps = 0
 
     def retire(mask):
@@ -701,6 +715,8 @@ def neargrid_walk_q_plain(qrows, state, shape, max_steps: int, known=None,
         if step == max_steps or lane.numel() == 0:
             break
         lane_steps += lane.numel()
+        if taken is not None:
+            taken[lane] += 1
         pos, prev, hist, dr = cur[:4]
         nxt, dr_after, reset, ongrid, dr_new, g = _q_step(
             w0, w1, pos, prev, hist, dr, shape)
@@ -715,14 +731,24 @@ def neargrid_walk_q_plain(qrows, state, shape, max_steps: int, known=None,
             cur[4] = torch.where(reset, 0.0, err + QS_EPS)
     retire(torch.ones(lane.numel(), dtype=torch.bool, device=lane.device))
     if stats is not None:
+        groups = -(-taken.numel() // 32)
+        warps = torch.zeros(groups * 32, dtype=torch.long,
+                            device=taken.device)
+        warps[:taken.numel()] = taken
         stats["lane_steps"] = lane_steps
         stats["rows_touched"] = int(touched.sum())
+        stats["warp_steps"] = 32 * int(warps.view(groups, 32).amax(1).sum())
+        stats["longest"] = int(taken.max()) if taken.numel() else 0
+        stats["stepped"] = int((taken > 0).sum())
     return tuple(out)
 
 
-def check_q_state(qrows, state, shape, known):
+def check_q_state(qrows, state, shape, known, counts=None):
     """Validate q-rows, a walk state and the optional known grid for a
-    kernel; returns the copied state, which the kernel updates in place."""
+    kernel.  ``counts``: a function of the state giving device scalars
+    (the lanes that walk, ...), read in the one sync that checks pos's
+    range.  returns the copied state, which the kernel updates in place,
+    and the counts' values."""
     n = int(np.prod(shape))
     _cuda.check(qrows, torch.int32, "qrows", (n, 2), per_voxel=2)
     if len(state) not in (5, 7):
@@ -736,25 +762,79 @@ def check_q_state(qrows, state, shape, known):
         _cuda.check(a, dtype, name, shp)
     if known is not None:
         _cuda.check(known, torch.int8, "known", shape)
+    values = []
     if k:
         lo, hi = torch.aminmax(state[0])
-        if int(lo) < 0 or int(hi) >= n:
+        lo, hi, *values = torch.stack(
+            [lo.long(), hi.long(),
+             *(c.long() for c in (counts(state) if counts else ()))]).tolist()
+        if lo < 0 or hi >= n:
             raise ValueError(f"pos: flat indices must lie in [0, {n})")
-    return tuple(a.clone() for a in state)
+    return tuple(a.clone() for a in state), values
 
 
-def neargrid_walk_q_cuda(qrows, state, shape, max_steps: int, known=None):
+def stop_bits(shape, known, stop):
+    """The stop bitmap a q-walk kernel reads: ``stop`` as given (a
+    bitmap of :func:`stop_bitmap_cuda`, which the caller builds afresh
+    after any write to the known grid), else built from ``known``; None
+    without a stop set.  One of the two, not both: the kernel would read
+    only the bitmap."""
+    if stop is not None:
+        if known is not None:
+            raise ValueError("pass known or its stop bitmap, not both")
+        _cuda.check(stop, torch.int32, "stop (a bitmap)",
+                    (-(-int(np.prod(shape)) // 32),))
+        return stop
+    if known is None:
+        return None
+    _cuda.check(known, torch.int8, "known", shape)
+    return stop_bitmap_cuda(known)
+
+
+def last_true(mask: torch.Tensor) -> torch.Tensor:
+    """1 + the index of ``mask``'s last True element (0 for none), on the
+    device."""
+    n = mask.numel()
+    if n == 0:
+        return torch.zeros((), dtype=torch.long, device=mask.device)
+    flip = mask.flip(0).to(torch.int32)
+    return torch.where(flip.any(), n - torch.argmax(flip), 0)
+
+
+def claim_batch(lanes: int, walking: int) -> int:
+    """Lanes a warp of a persistent q walk claims at once: about a warp's
+    worth of the lanes that walk among ``lanes``, ``32 * lanes /
+    walking`` rounded down to a multiple of 32 from 32 to 1024, for lanes
+    that walk spread evenly (a claim of 32 would spend an atomic on about
+    one of them).  Where they crowd into a prefix, as in the block
+    phase's hand-off, ``lanes`` must end at the last of them: a claim
+    sized by the mean density would hand a few warps hundreds of lanes
+    (PERF.md)."""
+    return 32 * min(32, max(1, lanes // max(walking, 1)))
+
+
+def neargrid_walk_q_cuda(qrows, state, shape, max_steps: int, known=None,
+                         *, stop=None):
     """Launch ``pb_neargrid_walk_q`` (csrc/neargrid.cu) on a copy of the
-    state."""
-    out = check_q_state(qrows, state, shape, known)
+    state, with ``known`` as the bitmap of :func:`stop_bitmap_cuda`.
+    ``stop``: in place of ``known``, that bitmap, built by the caller once
+    for several walks.  The kernel takes the lanes up to the
+    last one not done; no launch when every lane is done."""
+    bits = stop_bits(shape, known, stop)
+    out, span = check_q_state(qrows, state, shape, known,
+                              lambda s: [(~s[4]).sum(), last_true(~s[4])])
+    if not span or not span[0]:
+        return out
+    walking, k = span
     screened = len(out) == 7
     nx, ny, nz = shape
+    claimed = torch.zeros((1,), dtype=torch.int64, device=qrows.device)
     _cuda.call("pb_neargrid_walk_q", qrows.data_ptr(),
-               None if known is None else known.data_ptr(),
+               None if bits is None else bits.data_ptr(),
                *(a.data_ptr() for a in out[:5]),
                out[5].data_ptr() if screened else None,
-               out[6].data_ptr() if screened else None,
-               out[0].numel(), nx, ny, nz, int(max_steps),
+               out[6].data_ptr() if screened else None, claimed.data_ptr(),
+               k, claim_batch(k, walking), nx, ny, nz, int(max_steps),
                qrows.device.index or 0, _cuda.stream(qrows))
     _cuda.launches["neargrid_walk_q"] += 1
     return out
@@ -812,10 +892,19 @@ def walk_q(qrows, starts, shape, max_steps: int, known=None,
     from pybader_tpu_torch.ops import block_walk
 
     state = init_state(starts, screened)
+    stop = order = None
+    if known is not None and _cuda.on_cuda(qrows):
+        # the kernels' stop set, a bitmap built once for the block rounds
+        # and the q walker
+        known, stop = None, stop_bitmap_cuda(known)
     if block_walk.enabled(shape, starts.numel()):
-        state = block_walk.block_phase(qrows, state, shape, known,
-                                       stats=stats)
-    state = neargrid_walk_q(qrows, state, shape, max_steps, known)
+        state, order = block_walk.block_rounds(qrows, state, shape, known,
+                                               stats=stats, stop=stop)
+    # the lanes in the rounds' last order: those still walking come first,
+    # by block (each lane walks on its own, so the order changes nothing)
+    state = neargrid_walk_q(qrows, state, shape, max_steps, known, stop=stop)
+    if order is not None:
+        state = block_walk.unsort(state, order)
     return (state[0], state[4], state[6]) if screened else \
         (state[0], state[4])
 

@@ -111,6 +111,63 @@ def test_q_walker_resumes_from_jax_state(screened):
     assert (~got[4]).sum() < (~np.asarray(mid[4])).sum()
 
 
+@pytest.mark.parametrize("screened", [False, True])
+def test_q_walker_on_done_and_padding_lanes_matches_jax(screened):
+    """A walk whose lanes have all ended (in an earlier walk, or as
+    padding) moves nothing, as JAX's segment does not."""
+    rho, lattice = fields("big")
+    q, known, _, _ = setup(rho, lattice)
+    shape = rho.shape
+    starts = np.flatnonzero(known.reshape(-1) == -2).astype(np.int32)
+    baked = jng.update_stop_q(jnp.asarray(q),
+                              jnp.asarray(known.reshape(-1) == 2))
+    seg = jng._walk_segment_qs if screened else jng._walk_segment_q
+    state = jng._init_state(jnp.asarray(jng.pad_starts(starts)), jnp.float32,
+                            screened=screened)
+    ended = seg(state, baked, shape, 2000)
+    assert np.asarray(ended[4]).all()
+    assert (np.asarray(jng.pad_starts(starts)) < 0).any()
+    want = seg(ended, baked, shape, 40)
+    got = tng.neargrid_walk_q(
+        torch.from_numpy(q),
+        tuple(torch.from_numpy(np.array(a)) for a in ended), shape, 40,
+        torch.from_numpy(known))
+    assert_state_equal(want, got)
+    assert_state_equal(ended, got)
+
+
+@pytest.mark.parametrize("screened", [False, True])
+def test_q_walker_counts_match_its_walks(screened):
+    """The plain walker's counts, which the chip tools' bounds and shares
+    rest on: a lane's steps are the least cap whose walk leaves it where
+    the uncapped walk does."""
+    rho, lattice = fields("small")
+    q, known, _, _ = setup(rho, lattice)
+    shape = rho.shape
+    starts = torch.from_numpy(np.flatnonzero(
+        known.reshape(-1) == -2).astype(np.int32))
+    state = tng.init_state(tng.pad_starts(starts, 64), screened)
+    q, known = torch.from_numpy(q), torch.from_numpy(known)
+    st = {}
+    final = tng.neargrid_walk_q_plain(q, state, shape, 500, known, st)
+    assert bool(final[4].all())
+    taken = torch.full((state[0].numel(),), -1)
+    for cap in range(st["longest"] + 1):
+        out = tng.neargrid_walk_q_plain(q, state, shape, cap, known)
+        same = torch.ones_like(taken, dtype=torch.bool)
+        for a, b in zip(out, final):
+            same &= (a == b).reshape(a.shape[0], -1).all(1)
+        taken = torch.where((taken < 0) & same, cap, taken)
+    assert bool((taken >= 0).all())
+    warps = torch.zeros(-(-taken.numel() // 32) * 32, dtype=torch.long)
+    warps[:taken.numel()] = taken
+    assert st["lane_steps"] == int(taken.sum())
+    assert st["longest"] == int(taken.max())
+    assert st["stepped"] == int((taken > 0).sum())
+    assert st["warp_steps"] == 32 * int(warps.view(-1, 32).amax(1).sum())
+    assert st["lane_steps"] < st["warp_steps"]
+
+
 def test_screened_walk_matches_jax():
     """walk_screened, risky re-walks on the exact rows included, equals
     JAX's walk_drain_screened (JAX's own exact rows, converted)."""

@@ -44,6 +44,19 @@ Inputs, all made on the card from seeds: chip_smoke's 384^3 blob field and
 - the walk of refinement's first iteration on the blob field (every edge
   voxel, the stop set at known == 2, the refinement cap), with
   ``device_ms`` (the walker's and its stop bitmap's kernels);
+- the q walks of that iteration (``--only qwalk,block``): the screened
+  q walker on its padded edge bucket at the refinement cap
+  (``qwalk_fresh``) and at a cap of 3 (``qwalk_cap3``), on the block
+  phase's hand-off (``qwalk_handoff``: mostly done lanes, the variant
+  calls' input), one block round of 24 steps on the bucket
+  (``block_round``) and the whole block phase (``block_phase``, as the
+  checkout's ``walk_q`` runs it), each with ``device_ms`` of its walk
+  kernel alone; the stop bitmap is built once and passed to the kernels
+  in place of known where the checkout's wrappers take it;
+  and the q walker and one block round on the same lanes with no stop
+  set (``qwalk_free``, ``block_round_free``) and with a stop set that
+  holds no voxel (``..._free_bits``): the same walks, so the two differ
+  only by the stop-set reads;
 - edge_check on the known grid after that walk (dense), on 0.6 M of its
   edges sampled with seed 5 (sparse), on the input the last edge_check of
   a default ``Bader()`` call receives (last) and on
@@ -69,13 +82,15 @@ the call's kernels alone (from ``torch.profiler``, the mean of ``--reps``
 calls), which leaves out the wrapper's own host work and copies.
 ``--only stencil,surface`` (prefixes of the case names) times those
 cases alone; ``--only roots,chase,mesh`` the roots, the iteration-1 walk
-and the chase on one device and on the mesh.
+and the chase on one device and on the mesh; ``--only qwalk,block`` the
+q walks.
 Prints one JSON line.
 """
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -106,10 +121,13 @@ def main(argv=None):
         return not only or name.startswith(only)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    from unittest import mock
+
     import torch
 
     cs = load_chip_smoke()
     from pybader_tpu_torch import grid, pipeline
+    from pybader_tpu_torch.ops import _cuda, block_walk
     from pybader_tpu_torch.ops import atoms as atoms_ops
     from pybader_tpu_torch.ops import chase, edges, neargrid, pointer
     from pybader_tpu_torch.ops import reductions, stencil
@@ -255,6 +273,91 @@ def main(argv=None):
         out[name] = {"edges": int((known == -2).sum()), "ms": timed(
             lambda: edges.edge_check_cuda(known, labels, is_max))}
 
+    def q_cases(rho, codes, known, starts, cap):
+        """The q walks of refinement's first iteration, each against its
+        plain version (the phase: the same phase with every op on its
+        plain version), with the device time of its walk kernel alone."""
+        tg = torch.as_tensor(grid.t_grad(cs.LATTICE, shape), device="cuda")
+        qrows = neargrid.neargrid_qrows_cuda(rho, codes, tg, True)
+        padded = neargrid.pad_to(starts, neargrid.bucket_size(starts.numel()))
+        bits = neargrid.stop_bitmap_cuda(known)
+
+        # the stop set as the checkout's wrappers take it: the bitmap in
+        # place of known, or (an older checkout) known
+        new = "stop" in inspect.signature(
+            neargrid.neargrid_walk_q_cuda).parameters
+        kq = {"stop": bits} if new else {"known": known}
+        fresh = neargrid.init_state(padded, True)
+        order, blocks, live = block_walk.prep_round(fresh, shape)
+        ordered = tuple(a[order] for a in fresh)
+
+        def phase():  # as the checkout's walk_q runs it
+            if new:
+                return block_walk.unsort(*block_walk.block_rounds(
+                    qrows, fresh, shape, stop=bits))
+            return block_walk.block_phase(qrows, fresh, shape, known)
+
+        handed = phase()
+        empty = torch.zeros_like(known)  # a stop set that holds no voxel
+        ke = {"stop": neargrid.stop_bitmap_cuda(empty)} if new else {
+            "known": empty}
+
+        def plain_phase():
+            with mock.patch.object(_cuda, "on_cuda", lambda t: False):
+                return block_walk.block_phase(qrows, fresh, shape, known)
+
+        cases = {
+            "qwalk_fresh": (
+                lambda: neargrid.neargrid_walk_q_cuda(
+                    qrows, fresh, shape, cap, **kq),
+                lambda: neargrid.neargrid_walk_q_plain(
+                    qrows, fresh, shape, cap, known), "walk_q_kernel"),
+            "qwalk_cap3": (
+                lambda: neargrid.neargrid_walk_q_cuda(
+                    qrows, fresh, shape, 3, **kq),
+                lambda: neargrid.neargrid_walk_q_plain(
+                    qrows, fresh, shape, 3, known), "walk_q_kernel"),
+            "qwalk_handoff": (
+                lambda: neargrid.neargrid_walk_q_cuda(
+                    qrows, handed, shape, cap, **kq),
+                lambda: neargrid.neargrid_walk_q_plain(
+                    qrows, handed, shape, cap, known), "walk_q_kernel"),
+            "block_round": (
+                lambda: block_walk.block_round_cuda(
+                    qrows, ordered, blocks, live, shape, 24, **kq),
+                lambda: block_walk.block_round_plain(
+                    qrows, ordered, blocks, live, shape, 24, known),
+                "block_walk_kernel"),
+            "block_phase": (phase, plain_phase, "block_walk_kernel"),
+            "qwalk_free": (
+                lambda: neargrid.neargrid_walk_q_cuda(
+                    qrows, fresh, shape, cap),
+                lambda: neargrid.neargrid_walk_q_plain(
+                    qrows, fresh, shape, cap), "walk_q_kernel"),
+            "qwalk_free_bits": (
+                lambda: neargrid.neargrid_walk_q_cuda(
+                    qrows, fresh, shape, cap, **ke),
+                lambda: neargrid.neargrid_walk_q_plain(
+                    qrows, fresh, shape, cap), "walk_q_kernel"),
+            "block_round_free": (
+                lambda: block_walk.block_round_cuda(
+                    qrows, ordered, blocks, live, shape, 24),
+                lambda: block_walk.block_round_plain(
+                    qrows, ordered, blocks, live, shape, 24),
+                "block_walk_kernel"),
+            "block_round_free_bits": (
+                lambda: block_walk.block_round_cuda(
+                    qrows, ordered, blocks, live, shape, 24, **ke),
+                lambda: block_walk.block_round_plain(
+                    qrows, ordered, blocks, live, shape, 24),
+                "block_walk_kernel")}
+        for name, (kernel, plain, kname) in cases.items():
+            if not want(name):
+                continue
+            cs.state_equal(kernel(), plain())
+            out[name] = {"ms": timed(kernel),
+                         "device_ms": device_ms(kernel, (kname,))[0]}
+
     def mesh_cases(mesh, rho, codes, w, starts, known, tg, cap, rows):
         """sharded_chase and walk_sharded on the mesh, each against the
         single-device result, with their kernels' device time."""
@@ -369,7 +472,8 @@ def main(argv=None):
         del density
     del atom, edge
     if only and not any(p.startswith(("roots", "walk", "check", "find",
-                                      "chase", "mesh")) for p in only):
+                                      "chase", "mesh", "qwalk", "block"))
+                        for p in only):
         print(json.dumps(out), flush=True)
         return
     for name, parent in cs.roots_inputs(shape, "cuda").items():
@@ -391,6 +495,8 @@ def main(argv=None):
         "lanes": starts.numel(), "ms": timed(walk1),
         "device_ms": device_ms(walk1, ("walk_kernel",
                                        "stop_bitmap_kernel"))}
+    if not only or any(p.startswith(("qwalk", "block")) for p in only):
+        q_cases(rho, codes, known, starts, cap)
     mesh = make_mesh(cs.MESH_SHARDS, device="cuda")
     if want("mesh"):
         mesh_cases(mesh, rho, codes, w, starts, known, tg, cap, rows)

@@ -1,13 +1,13 @@
-"""Per-launch numbers of the walkers (and the mesh chase) in one default
+"""Per-launch numbers of the walkers (and the mesh chase) in one
 ``Bader()`` call.
 
 Run from the repository root on a machine with one CUDA GPU:
 
     python3 tools/walk_launches.py [--root DIR] [--size 384] [--reps 5]
-                                   [--mesh N]
+                                   [--mesh N] [--env NAME=VALUE ...]
 
-It imports ``pybader_tpu_torch`` and ``chip_smoke`` from ``--root`` (default:
-this repository; an older checkout unpacked with ``git archive`` works too),
+It imports ``pybader_tpu_torch`` from ``--root`` (default: this
+repository; an older checkout unpacked with ``git archive`` works too),
 runs chip_smoke's blob field at ``--size``^3 through a default ``Bader()``
 with ``neargrid.neargrid_walk`` wrapped to keep each launch's inputs.  Then
 it times each launch again on those inputs (CUDA events, the median of
@@ -27,15 +27,46 @@ each with its time (``ms``: CUDA events around the wrapper, host work
 included) and its kernels' device time (``device_ms``: one replay of
 every launch under ``torch.profiler``).  The JSON line then holds each
 kind's launches and the sums of their times and bounds.
+
+With ``--env NAME=VALUE`` (repeatable; chip_smoke's VARIANTS, e.g.
+``--env PYBADER_TPU_BLOCK_WALK=1``) the call runs under those environment
+variables and the launches kept are the block rounds' (``block_walk``)
+and the q walker's (``neargrid_walk_q``).  For each launch: lanes, the
+live tiles of a round, the lanes the function must walk (``walk_lanes``:
+not done, and in a live tile), the lanes that step and whose state
+changed, lane-steps and the longest lane's steps (from the plain
+version), rows touched, the bound of ``chip_smoke.q_walk_cost`` from
+those counts, ``ms`` (CUDA events around the wrapper, host work
+included) and ``device_ms`` (one replay of every launch under
+``torch.profiler``).  The JSON line holds each kind's launches, the sums
+of their times and bounds and the lost time (device ms less bounds).
+
+The inputs come from this checkout's ``chip_smoke`` and the kernels from
+``--root``, so the counts of an older checkout's launches are this
+checkout's plain versions' (the launches' inputs are the same: the
+walks are bit for bit the same).
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
+import inspect
 import json
 import os
 import subprocess
 import sys
 import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_chip_smoke():
+    """This repository's chip_smoke, whatever ``--root`` is."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def device_times(calls, first, names):
@@ -147,6 +178,116 @@ def mesh_launches(cs, density, atoms, n, reps):
                 "each": v} for k, v in record.items()}
 
 
+def stop_grid(bits, shape):
+    """The known grid of a stop bitmap (2 at a stop voxel, else 0), which
+    the plain versions read where the kernel was given the bitmap."""
+    import torch
+
+    i = torch.arange(bits.numel() * 32, device=bits.device)
+    on = (bits.long()[i >> 5] >> (i & 31)) & 1
+    n = shape[0] * shape[1] * shape[2]
+    return (2 * on[:n]).to(torch.int8).reshape(shape)
+
+
+def q_launches(cs, density, atoms, env, reps):
+    """Keep, time and count the block rounds' and the q walker's launches
+    of a default Bader() call under the environment ``env``."""
+    import torch
+
+    from pybader_tpu_torch.ops import block_walk, neargrid
+
+    where = {"block_walk": (block_walk, "block_round_cuda",
+                            block_walk.block_round_plain,
+                            "block_walk_kernel"),
+             "neargrid_walk_q": (neargrid, "neargrid_walk_q_cuda",
+                                 neargrid.neargrid_walk_q_plain,
+                                 "walk_q_kernel")}
+    real = {k: getattr(mod, name) for k, (mod, name, _, _) in where.items()}
+    kept = {k: [] for k in where}
+    # a copy of each version of the known grids, which refinement updates
+    # in place between walks, with the grid itself, so that no later grid
+    # takes its address while it is kept (a stop bitmap, built afresh for
+    # each walk and not written after, is kept as given)
+    grids = {}
+
+    def fingerprint(state):
+        return [int(state[0].long().sum()), int(state[4].sum()),
+                int(state[3].view(torch.int32).long().sum())]
+
+    def keeper(kind):
+        sig = inspect.signature(real[kind])
+
+        def keep(*args, **kw):
+            call = sig.bind(*args, **kw)
+            known = call.arguments.get("known")
+            if known is not None:
+                key = (known.data_ptr(), known._version)
+                if key not in grids:
+                    grids[key] = (known, known.clone())
+                call.arguments["known"] = grids[key][1]
+            out = real[kind](*args, **kw)
+            kept[kind].append((call, fingerprint(out)))
+            return out
+        return keep
+
+    with tempfile.TemporaryDirectory() as tmp, cs.environ(env):
+        for kind, (mod, name, _, _) in where.items():
+            setattr(mod, name, keeper(kind))
+        try:
+            cs.blob_bader(density, atoms, tmp)()
+        finally:
+            for kind, (mod, name, _, _) in where.items():
+                setattr(mod, name, real[kind])
+    out = {}
+    for kind, (_, _, plain, kernel) in where.items():
+        calls = kept[kind]
+        dev = device_times(
+            [lambda c=c: real[kind](*c.args, **c.kwargs) for c, _ in calls],
+            kernel, (kernel,)) if calls else []
+        each = []
+        for (c, seen), device_ms in zip(calls, dev):
+            a = c.arguments
+            live = a.get("live")
+            known = a.get("known")
+            if a.get("stop") is not None:
+                known = stop_grid(a["stop"], a["shape"])
+            st = {}
+            steps = a["steps"] if kind == "block_walk" else a["max_steps"]
+            if kind == "block_walk":
+                want = plain(a["qrows"], a["state"], a["blocks"], live,
+                             a["shape"], steps, known, stats=st)
+            else:
+                want = plain(a["qrows"], a["state"], a["shape"], steps,
+                             known, stats=st)
+            got = real[kind](*c.args, **c.kwargs)
+            if fingerprint(got) != seen:
+                raise AssertionError(f"{kind}: a replay differs from its "
+                                     f"launch in the call")
+            cs.state_equal(got, want)
+            del got
+            cost, counts = cs.q_walk_cost(a["state"], want, st, live,
+                                          known is not None)
+            del known
+            each.append({
+                "lanes": a["state"][0].numel(),
+                **({"live_tiles": int(live.sum())} if live is not None
+                   else {}),
+                **counts, **{k: st.get(k) for k in (
+                    "stepped", "lane_steps", "longest", "warp_steps",
+                    "rows_touched")},
+                "ms": cs.time_ms(lambda: real[kind](*c.args, **c.kwargs),
+                                 reps),
+                "device_ms": device_ms, **cost})
+        total_dev = sum(r["device_ms"] for r in each)
+        total_bound = sum(r["bound_ms"] for r in each)
+        out[kind] = {"launches": len(each),
+                     "total_ms": sum(r["ms"] for r in each),
+                     "total_device_ms": total_dev,
+                     "total_bound_ms": total_bound,
+                     "lost_ms": total_dev - total_bound, "each": each}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(
@@ -156,12 +297,15 @@ def main(argv=None):
     ap.add_argument("--mesh", type=int, default=0,
                     help="keep the shard walker's and the chase's launches "
                     "of the call on this many shards of the card")
+    ap.add_argument("--env", action="append", default=[],
+                    help="run the call under this environment variable and "
+                    "keep the block rounds' and the q walker's launches")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
 
-    import chip_smoke as cs
+    cs = load_chip_smoke()
     from pybader_tpu_torch.ops import neargrid
 
     if not torch.cuda.is_available():
@@ -172,6 +316,13 @@ def main(argv=None):
     rho, atoms = cs.blob_field((args.size,) * 3, "cuda")
     density = rho.cpu().numpy()
     del rho
+    if args.env:
+        env = dict(e.split("=", 1) for e in args.env)
+        print(json.dumps({"root": os.path.relpath(root),
+                          "card": smi.stdout.strip(), "env": env,
+                          **q_launches(cs, density, atoms, env,
+                                       args.reps)}), flush=True)
+        return
     if args.mesh:
         print(json.dumps({"root": os.path.relpath(root),
                           "card": smi.stdout.strip(), "mesh": args.mesh,
