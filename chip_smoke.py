@@ -78,7 +78,9 @@ Phases (one line of output each, or a few):
      conserved, and the volume maps must equal the same call with every op
      on its plain version on the card; then an untimed second call, and
      edge_check against its plain version on the input its last
-     edge_check received
+     edge_check received; a third call under ``torch.profiler``, whose
+     ``upload.*`` and ``download.*`` spans must count its trace's memcpy
+     bytes within 1 %
  12. variants: ``Bader(...)()`` at 384^3 under PYBADER_TPU_HYBRID_INIT=
      nginit, PYBADER_TPU_QROWS=internal and PYBADER_TPU_BLOCK_WALK=1, then
      under PYBADER_TPU_BLOCK_WALK=1 alone (screened walks); each must launch
@@ -1444,6 +1446,37 @@ def equal_plain(b, density, atoms_cart, tmp, phase):
         f"card ({time.perf_counter() - t0:.3f} s)")
 
 
+def copy_bytes_case(density, atoms_cart, tmp, phase="default"):
+    """One default call under ``torch.profiler``: the ``bytes`` of its
+    ``upload.*`` and ``download.*`` spans must be its trace's memcpy bytes
+    (HtoD, DtoH) within 1 %."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b = blob_bader(density, atoms_cart, tmp)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        b()
+    path = os.path.join(tmp, "copy_bytes_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    got = {"upload": 0, "download": 0}
+    for ev in events:
+        name = ev.get("name", "")
+        if ev.get("cat") == "gpu_memcpy" and ("HtoD" in name
+                                              or "DtoH" in name):
+            got["upload" if "HtoD" in name else "download"] += int(
+                ev.get("args", {}).get("bytes", 0))
+    counted = {k: sum(s.counters["bytes"] for s in b.spans
+                      if s.name.startswith(k + ".")) for k in got}
+    say(phase, f"bytes copied, spans {counted}, trace {got}")
+    for k, want in got.items():
+        if abs(counted[k] - want) > 0.01 * want:
+            raise AssertionError(f"the {k} spans count {counted[k]} bytes, "
+                                 f"the trace's memcpys {want}")
+
+
 def default_phase(rho, atoms_cart, tmp):
     """The default profile at 384^3 through the kernels, then the same call
     with every op on its plain version on the card.  Returns the launches,
@@ -1470,6 +1503,7 @@ def default_phase(rho, atoms_cart, tmp):
         "iteration, internal then user: "
         + json.dumps([r["iterations"] for r in record]))
     say("default", "launches " + json.dumps(launches))
+    copy_bytes_case(density, atoms_cart, tmp)
     equal_plain(b, density, atoms_cart, tmp, "default")
     return launches, b, seconds
 

@@ -19,14 +19,15 @@ from configparser import ConfigParser
 from contextlib import contextmanager
 from inspect import getmembers, ismodule
 from pickle import dump
-from time import perf_counter
+# unused: the JAX package's interface exports it (test_torch_import)
+from time import perf_counter  # noqa: F401
 
 import numpy as np
 import pandas as pd
 import torch
 
 from pybader_tpu_torch import grid as _grid
-from pybader_tpu_torch import io, pipeline
+from pybader_tpu_torch import io, pipeline, trace
 from pybader_tpu_torch.dunders import __config__
 from pybader_tpu_torch.ops import atoms as atoms_ops
 from pybader_tpu_torch.ops import edges as edges_ops
@@ -43,12 +44,16 @@ _WRITERS = {"VASP": io.vasp.write, "cube": io.cube.write,
             "gpaw": io.cube.write, "pymatgen object": io.vasp.write}
 
 
-def _host(grid) -> np.ndarray:
-    """A label grid, whole or sharded, as host numpy (the result attributes
-    that ``results()``, the pickle and the writers read)."""
+def _host(grid, what) -> np.ndarray:
+    """A result tensor, whole or sharded, as host numpy (the attributes
+    that ``results()``, the pickle and the writers read), in a
+    ``download.<what>`` span."""
     if isinstance(grid, Sharded):
-        return grid.join().numpy()
-    return grid.cpu().numpy()
+        nbytes = sum(trace.moved(b, "cpu") for b in grid.blocks)
+        with trace.span("download." + what, bytes=nbytes):
+            return grid.join().numpy()
+    with trace.span("download." + what, bytes=trace.moved(grid, "cpu")):
+        return grid.cpu().numpy()
 
 
 @contextmanager
@@ -58,21 +63,22 @@ def _stage(name, multiline=False, record=None):
     Yields a ``tick(msg)`` callable that overwrites one console line.
     Every stage ends by copying its results to the host, which waits for
     the device, so the wall time covers the device work.  ``record``, a
-    dict, receives ``record[name] = seconds``.
+    dict, receives ``record[name] = seconds``, the duration of the stage's
+    span, ``stage.<name>``.
     """
     if multiline:
         print(f"  {name}:")
     else:
         print(f"  {name}: ", end="", flush=True)
-    t0 = perf_counter()
     state = {"ticked": False}
 
     def tick(msg):
         state["ticked"] = True
         print(f"\r  {name}: {msg}" + " " * 12, end="", flush=True)
 
-    yield tick
-    dt = perf_counter() - t0
+    with trace.Span("stage." + name) as span:
+        yield tick
+    dt = span.seconds
     if record is not None:
         record[name] = dt
     if state["ticked"]:
@@ -178,22 +184,35 @@ class Bader:
                   than one shard the grid stages run sharded over it (the
                   multi-device path, ``parallel/``).  Not a config.ini key
                   and not pickled.
+
+    ``spans``: the spans (:mod:`pybader_tpu_torch.trace`) of ``__init__``
+    and of the last call, not pickled.  Each walking iteration of the
+    refinement, the hybrid partition's internal ones included, is a
+    ``refine.iteration`` span whose counters ``edges``, ``changed``,
+    ``cap_fires`` and ``risky`` record how it converged; each copy is an
+    ``upload.<what>`` or ``download.<what>`` span with the ``bytes`` that
+    crossed.
     """
 
     device = "cuda"
     mesh = None  # class default; set per instance for multi-device runs
 
     def __init__(self, density_dict, lattice, atoms, file_info, **kwargs):
-        self._density = density_dict
-        self._lattice = np.asarray(lattice, dtype=np.float64)
-        self._atoms = np.asarray(atoms, dtype=np.float64)
-        self._file_info = file_info
-        self._dataframe = None
-        self.stage_seconds = {}
-        self.density = self.charge if self.charge is not None else self.spin
-        self.reference = self.density
-        self.load_config()
-        self.apply_config(kwargs)
+        # the spans of this object (pybader_tpu_torch.trace): 'init', then
+        # each call's
+        self.spans = []
+        with trace.recording(self.spans), trace.span("init"):
+            self._density = density_dict
+            self._lattice = np.asarray(lattice, dtype=np.float64)
+            self._atoms = np.asarray(atoms, dtype=np.float64)
+            self._file_info = file_info
+            self._dataframe = None
+            self.stage_seconds = {}
+            self.density = self.charge if self.charge is not None \
+                else self.spin
+            self.reference = self.density
+            self.load_config()
+            self.apply_config(kwargs)
 
     # ------------------------------------------------------------------ io
     @classmethod
@@ -420,13 +439,30 @@ class Bader:
         self._dataframe = df
 
     # ---------------------------------------------------------- calculation
-    def _dev(self, array, dtype):
-        """``array`` (numpy or tensor) as a contiguous tensor on device."""
-        return torch.as_tensor(array).to(device=self.device,
-                                          dtype=dtype).contiguous()
+    def _dev(self, array, dtype, what):
+        """``array`` (numpy or tensor) as a contiguous tensor on device, in
+        an ``upload.<what>`` span whose ``bytes`` are those of the tensor
+        handed to the copy."""
+        t = torch.as_tensor(array)
+        with trace.span("upload." + what):
+            if t.is_cpu and t.dtype != dtype:
+                # cast on the host, as .to(device, dtype) does: the copy
+                # moves the cast tensor
+                t = t.to(dtype)
+            trace.count("bytes", trace.moved(t, self.device))
+            return t.to(device=self.device, dtype=dtype).contiguous()
 
     def __call__(self, **kwargs):
-        """Run the full Bader pipeline (reference interface.py:399-447)."""
+        """Run the full Bader pipeline (reference interface.py:399-447).
+
+        ``self.spans`` ends as the 'init' span and this call's, under the
+        root span 'analysis' (:mod:`pybader_tpu_torch.trace`)."""
+        self.spans = [s for s in getattr(self, 'spans', ())
+                      if s.name == 'init' and s.parent is None][:1]
+        with trace.recording(self.spans), trace.span("analysis"):
+            self._call(kwargs)
+
+    def _call(self, kwargs):
         self.apply_config(kwargs)
         self._dataframe = None
         self.stage_seconds = {}
@@ -451,24 +487,29 @@ class Bader:
                 if self.export_mode[0] == 'volumes' else self.atoms.shape[0]
             )
             sel = self.export_mode[1]
-            if sel[0] == -2:
-                for vol_num in range(count):
-                    self.write_volume(vol_num)
-                if self.vacuum_tol is not None:
-                    self.write_volume(-1)
-            else:
-                for vol_num in sel:
-                    self.write_volume(vol_num)
+            with trace.span("host.export"):
+                if sel[0] == -2:
+                    for vol_num in range(count):
+                        self.write_volume(vol_num)
+                    if self.vacuum_tol is not None:
+                        self.write_volume(-1)
+                else:
+                    for vol_num in sel:
+                        self.write_volume(vol_num)
         print('\n  Writing output file: ', end='')
         if self.output == 'pickle':
-            self.to_file()
+            with trace.span("host.pickle"):
+                self.to_file()
         elif self.output == 'dat':
             fn = self.prefix + self.info['filename']
-            with open(fn + '-atoms.dat', 'w') as f:
-                f.write(self.results())
+            texts = [('-atoms.dat', False)]
             if not self.speed_flag:
-                with open(fn + '-volumes.dat', 'w') as f:
-                    f.write(self.results(volume_flag=True))
+                texts.append(('-volumes.dat', True))
+            for suffix, volume_flag in texts:
+                with trace.span("host.results"):
+                    text = self.results(volume_flag=volume_flag)
+                with trace.span("host.write"), open(fn + suffix, 'w') as f:
+                    f.write(text)
         print('Done.')
 
     def volumes_init(self, volumes=None):
@@ -482,14 +523,18 @@ class Bader:
             try:
                 vac_tol = np.float64(self.vacuum_tol)
                 mask, vc, vv = reductions.vacuum_mask(
-                    self._dev(self.reference, torch.float64), float(vac_tol),
-                    self._dev(self.density, torch.float64),
+                    self._dev(self.reference, torch.float64, "reference"),
+                    float(vac_tol),
+                    self._dev(self.density, torch.float64, "density"),
                     self.voxel_volume,
                 )
-                volumes = np.where(
-                    mask.cpu().numpy(), np.array(-1, dtype=volumes.dtype),
-                    volumes,
-                )
+                mask = _host(mask, "vacuum_mask")
+                # the host spans also release the grids they consumed:
+                # unmapping their pages is host time too
+                with trace.span("host.vacuum_where"):
+                    volumes = np.where(
+                        mask, np.array(-1, dtype=volumes.dtype), volumes)
+                    del mask
                 self.vacuum_charge = vc
                 self.vacuum_volume = vv
             except (ValueError, TypeError) as e:
@@ -503,12 +548,16 @@ class Bader:
         vacuum = None
         vols = np.asarray(self.bader_volumes)
         multi = self._multi_mesh()
-        if (vols == -1).any():
-            vacuum = vols == -1 if multi else self._dev(vols == -1,
-                                                       torch.bool)
+        with trace.span("host.vacuum_scan"):
+            is_vac = vols == -1
+            if not is_vac.any():
+                is_vac = None
+        if is_vac is not None:
+            vacuum = is_vac if multi else self._dev(is_vac, torch.bool,
+                                                    "vacuum")
         # on a mesh the grids go to the shards' devices, whole from the host
-        reference = self.reference if multi else self._dev(self.reference,
-                                                           torch.float64)
+        reference = self.reference if multi else self._dev(
+            self.reference, torch.float64, "reference")
         with _stage("Calculating Bader volumes",
                     record=self.stage_seconds) as tick:
             if self.method == 'ongrid':
@@ -529,7 +578,10 @@ class Bader:
             else:
                 raise ValueError(f"Unknown method: {self.method}")
             dtype = dtype_calc(-max(int(maxima.shape[0]), 1))
-            self.bader_volumes = _host(labels).astype(dtype)
+            labels = _host(labels, "bader_volumes")
+            with trace.span("host.astype"):
+                self.bader_volumes = labels.astype(dtype)
+                del labels
         self.bader_maxima = maxima
 
     def bader_to_atom_distance(self):
@@ -537,20 +589,24 @@ class Bader:
         maxima_cart = self.bader_maxima
         with _stage("Assigning maxima to atoms", record=self.stage_seconds):
             atom_idx, dist = atoms_ops.assign_to_atoms(
-                self._dev(maxima_cart, torch.float64),
-                self._dev(self.atoms, torch.float64),
-                self._dev(self.lattice, torch.float64),
+                self._dev(maxima_cart, torch.float64, "maxima"),
+                self._dev(self.atoms, torch.float64, "atoms"),
+                self._dev(self.lattice, torch.float64, "lattice"),
             )
-            self.bader_atoms = atom_idx.cpu().numpy()
-            self.bader_distance = dist.cpu().numpy()
+            self.bader_atoms = _host(atom_idx, "bader_atoms")
+            self.bader_distance = _host(dist, "bader_distance")
             if self._multi_mesh():
                 atoms_vols = sharded_relabel(self.mesh, self.bader_volumes,
                                              self.bader_atoms)
             else:
                 atoms_vols = reductions.relabel(
-                    self._dev(self.bader_volumes, torch.int32), atom_idx)
+                    self._dev(self.bader_volumes, torch.int32,
+                              "bader_volumes"), atom_idx)
             dtype = dtype_calc(-max(int(self.atoms.shape[0]), 1))
-            self.atoms_volumes = _host(atoms_vols).astype(dtype)
+            atoms_vols = _host(atoms_vols, "atoms_volumes")
+            with trace.span("host.astype"):
+                self.atoms_volumes = atoms_vols.astype(dtype)
+                del atoms_vols
 
     def refine_volumes(self, volumes):
         """Refine edges of the given label map in place."""
@@ -570,14 +626,22 @@ class Bader:
             if self._multi_mesh():
                 reference, labels = self.reference, np.asarray(volumes)
             else:
-                reference = self._dev(self.reference, torch.float64)
-                labels = self._dev(volumes, torch.int32)
+                reference = self._dev(self.reference, torch.float64,
+                                      "reference")
+                labels = self._dev(volumes, torch.int32, "volumes")
+            # each iteration's work reaches self.spans as the counters of
+            # its 'refine.iteration' span
             refined, _ = pipeline.refine_labels(
                 self.refine_method, self.refine_mode, reference, labels,
                 tuple(self.distance_weights), self.T_grad,
                 progress=tick, carry_in=carry, mesh=self.mesh,
             )
-            np.copyto(volumes, _host(refined).astype(volumes.dtype))
+            refined = _host(refined, "refined")
+            with trace.span("host.astype"):
+                refined = refined.astype(volumes.dtype)
+            with trace.span("host.copyto"):
+                np.copyto(volumes, refined)
+                del refined
 
     def sum_volumes(self, bader=False):
         """Integrate charge/spin/volume per Bader volume or per atom."""
@@ -597,13 +661,13 @@ class Bader:
                         self.mesh, density, labels, self.voxel_volume, n)
                     return charge.numpy(), volume.numpy()
             else:
-                labels_dev = self._dev(labels, torch.int32)
+                labels_dev = self._dev(labels, torch.int32, "labels")
 
                 def sums(density):
                     charge, volume = reductions.charge_volume_sum(
-                        self._dev(density, torch.float64), labels_dev,
-                        self.voxel_volume, n)
-                    return charge.cpu().numpy(), volume.cpu().numpy()
+                        self._dev(density, torch.float64, "density"),
+                        labels_dev, self.voxel_volume, n)
+                    return _host(charge, "charge"), _host(volume, "volume")
 
             charge, volume = sums(self.density)
             setattr(self, f'{prefix}_charge', charge)
@@ -622,16 +686,19 @@ class Bader:
                     self.mesh, self.reference, self.atoms_volumes,
                     self.lattice, atoms, int(self.atoms.shape[0])).numpy()
                 return
-            labels = self._dev(self.atoms_volumes, torch.int32)
+            labels = self._dev(self.atoms_volumes, torch.int32,
+                               "atoms_volumes")
             known = edges_ops.edge_find(
-                self._dev(self.reference, torch.float64), labels)
+                self._dev(self.reference, torch.float64, "reference"),
+                labels)
             # the lattice stays on the host: the kernel takes it by value
             dist = atoms_ops.surface_distance_masked(
                 labels, known == -2,
                 torch.as_tensor(self.lattice, dtype=torch.float64),
-                self._dev(atoms, torch.float64), int(self.atoms.shape[0]),
+                self._dev(atoms, torch.float64, "atoms"),
+                int(self.atoms.shape[0]),
             )
-            self.atoms_surface_distance = dist.cpu().numpy()
+            self.atoms_surface_distance = _host(dist, "surface_distance")
 
     # -------------------------------------------------------------- results
     def results(self, volume_flag=False):
@@ -681,10 +748,12 @@ class Bader:
 
     def __getstate__(self):
         # a mesh holds live devices: never pickled; the refine carry is
-        # transient device state (the walk rows)
+        # transient device state (the walk rows), the spans a measurement
+        # of this process
         state = dict(self.__dict__)
         state.pop('mesh', None)
         state.pop('_refine_carry', None)
+        state.pop('spans', None)
         return state
 
     # --------------------------------------------------------------- output

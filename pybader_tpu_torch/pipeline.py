@@ -36,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from pybader_tpu_torch import trace
 from pybader_tpu_torch.ops import block_walk, neargrid, reductions
 from pybader_tpu_torch.ops.edges import edge_check, edge_find
 from pybader_tpu_torch.ops.pointer import labels_flood, resolve_roots
@@ -92,13 +93,20 @@ def renumber_discovery(labels_mo: torch.Tensor, is_max: torch.Tensor,
     maxima (M, 3) int64 numpy voxel coordinates).
     """
     _, ny, nz = labels_mo.shape
+    dev = labels_mo.device
     first_member, max_pos = reductions.min_pair(labels_mo, is_max, n_max)
-    first_h = first_member.cpu().numpy()
+    with trace.span("download.first_member",
+                    bytes=trace.moved(first_member, "cpu")):
+        first_h = first_member.cpu().numpy()
     order = np.argsort(first_h, kind="stable").astype(np.int32)
     rank = np.argsort(order, kind="stable").astype(np.int32)
-    labels = reductions.remap_labels(
-        labels_mo, torch.as_tensor(rank, device=labels_mo.device), n_max)
-    max_flat = max_pos.cpu().numpy()[order].astype(np.int64)
+    rank = torch.from_numpy(rank)
+    with trace.span("upload.rank", bytes=trace.moved(rank, dev)):
+        rank = rank.to(dev)
+    labels = reductions.remap_labels(labels_mo, rank, n_max)
+    with trace.span("download.max_pos", bytes=trace.moved(max_pos, "cpu")):
+        max_pos = max_pos.cpu().numpy()
+    max_flat = max_pos[order].astype(np.int64)
     maxima = np.stack(
         [max_flat // (ny * nz), (max_flat // nz) % ny, max_flat % nz],
         axis=1).astype(np.int64)
@@ -124,10 +132,12 @@ def partition_ongrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
         (labels int32 tensor [-1 vacuum, 0..M-1 basins],
          maxima (M, 3) int64 numpy voxel indices in discovery order)
     """
-    if is_multi(mesh):
-        return sharded.sharded_partition(mesh, reference, vacuum, weights)
-    return _partition_codes(step_codes(reference, vacuum, weights), vacuum,
-                            progress)
+    with trace.span("partition.init"):
+        if is_multi(mesh):
+            return sharded.sharded_partition(mesh, reference, vacuum,
+                                             weights)
+        return _partition_codes(step_codes(reference, vacuum, weights),
+                                vacuum, progress)
 
 
 def partition_nginit(reference: torch.Tensor, vacuum: torch.Tensor | None,
@@ -136,12 +146,13 @@ def partition_nginit(reference: torch.Tensor, vacuum: torch.Tensor | None,
     partition's flow on :func:`neargrid_init_codes` codes, each voxel's
     first neargrid step where it strictly ascends, else its ongrid step.
     Roots, maxima and numbering are the ongrid partition's."""
-    bk = neargrid_init_codes(reference, ongrid_step_codes(reference, weights),
-                             t_grad)
-    if vacuum is not None:
-        bk = torch.where(vacuum, torch.tensor(13, dtype=torch.uint8,
-                                              device=bk.device), bk)
-    return _partition_codes(bk, vacuum, progress)
+    with trace.span("partition.init"):
+        bk = neargrid_init_codes(
+            reference, ongrid_step_codes(reference, weights), t_grad)
+        if vacuum is not None:
+            bk = torch.where(vacuum, torch.tensor(13, dtype=torch.uint8,
+                                                  device=bk.device), bk)
+        return _partition_codes(bk, vacuum, progress)
 
 
 def _partition_codes(bk, vacuum, progress):
@@ -233,8 +244,9 @@ def partition_neargrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
     shape = tuple(reference.shape)
     env = os.environ.get
     if is_multi(mesh):
-        labels, maxima = sharded.sharded_partition(mesh, reference, vacuum,
-                                                   weights)
+        with trace.span("partition.init"):
+            labels, maxima = sharded.sharded_partition(mesh, reference,
+                                                       vacuum, weights)
         internal = hybrid_internal_budget(shape)
         if env("PYBADER_TPU_INTERNAL_ITERS") is not None:
             internal = ("changed", int(env("PYBADER_TPU_INTERNAL_ITERS")))
@@ -271,19 +283,31 @@ def partition_neargrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
             verbose=False, progress=progress, carry_out=carry_out,
             stats=stats, quantized=quantized, step_cap=step_cap)
         return labels, maxima
+    with trace.span("partition.walk"):
+        return _partition_walk(reference, vacuum, weights, t_grad, shape,
+                               progress, stats)
+
+
+def _partition_walk(reference, vacuum, weights, t_grad, shape, progress,
+                    stats):
+    """Every non-vacuum voxel's full trajectory (the neargrid partition
+    below the hybrid's threshold)."""
+    n = reference.numel()
     bk = step_codes(reference, vacuum, weights)
     cap = neargrid.initial_cap(shape)
     if progress is not None:
         progress(f"walking {n} trajectories")
     wstat = {} if stats is not None else None
     n_starts = n if vacuum is None else int((~vacuum).sum())
-    if env("PYBADER_TPU_QROWS", "screened") != "off" and block_walk.enabled(
-            shape, neargrid.padded_size(min(n_starts, _WALK_BATCH))):
+    if os.environ.get("PYBADER_TPU_QROWS", "screened") != "off" and \
+            block_walk.enabled(shape, neargrid.padded_size(
+                min(n_starts, _WALK_BATCH))):
         pos, done = _walk_all_screened(reference, vacuum, bk, t_grad, shape,
                                        cap, wstat)
     else:
-        rows = neargrid.neargrid_rows(reference, bk, t_grad,
-                                      strict_grad=False)
+        with trace.span("partition.rows"):
+            rows = neargrid.neargrid_rows(reference, bk, t_grad,
+                                          strict_grad=False)
         starts = torch.arange(n, dtype=torch.int32, device=reference.device)
         pos, done = neargrid.neargrid_walk(rows, starts, shape, cap)
         del rows
@@ -304,8 +328,11 @@ def _walk_all_screened(reference, vacuum, bk, t_grad, shape, cap, stats):
     themselves.  returns (pos, done) over the whole grid."""
     n = reference.numel()
     dev = reference.device
-    qrows = neargrid.neargrid_qrows(reference, bk, t_grad, strict_grad=False)
-    exact = _Lazy(neargrid.neargrid_rows, reference, bk, t_grad, False)
+    with trace.span("partition.rows"):
+        qrows = neargrid.neargrid_qrows(reference, bk, t_grad,
+                                        strict_grad=False)
+    exact = _Lazy(neargrid.neargrid_rows, reference, bk, t_grad, False,
+                  span="partition.rows")
     pos = torch.arange(n, dtype=torch.int32, device=dev)
     done = torch.ones(n, dtype=torch.bool, device=dev)
     starts_all = pos.clone() if vacuum is None else torch.nonzero(
@@ -323,14 +350,17 @@ def _walk_all_screened(reference, vacuum, bk, t_grad, shape, cap, stats):
 class _Lazy:
     """Walk rows built at the first call, kept afterwards: the screened
     walk needs exact rows only if a lane is risky, and a refinement builds
-    only the formats its walks use.  ``value``: rows already built."""
+    only the formats its walks use.  ``value``: rows already built; the
+    build runs in a span named ``span``."""
 
-    def __init__(self, build, *args, value=None):
+    def __init__(self, build, *args, value=None, span="refine.rows"):
         self.build, self.args, self.value = build, args, value
+        self.span = span
 
     def __call__(self):
         if self.value is None:
-            self.value = self.build(*self.args)
+            with trace.span(self.span):
+                self.value = self.build(*self.args)
         return self.value
 
 
@@ -392,7 +422,11 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
     The risky lanes are those of the screened q walks the port runs (with
     the block phase); where it walks exact rows in their place the count
     is 0.  ``stats['block_rounds']`` gets, per iteration, the live-lane
-    counts after each block round of each walk.
+    counts after each block round of each walk.  Each iteration that walks
+    runs in a ``refine.iteration`` span (:mod:`pybader_tpu_torch.trace`)
+    whose counters ``edges``, ``changed``, ``cap_fires`` and ``risky`` are
+    the first four fields of its tuple; the rows build in ``refine.rows``
+    and ``edge_find`` / ``edge_check`` in ``refine.edges``.
 
     ``reference`` and ``labels`` are tensors on one device; ``t_grad`` is
     a host array (numpy or a CPU tensor: the rows kernel takes it by
@@ -427,7 +461,8 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
         vac = labels == -1
         bk = step_codes(reference, vac, weights)
         is_max = (bk == 13) & ~vac
-        known = edge_find(reference, labels, is_max)
+        with trace.span("refine.edges"):
+            known = edge_find(reference, labels, is_max)
         rows = qrows = None
     exact = _Lazy(neargrid.neargrid_rows, reference, bk, t_grad, True,
                   value=rows)
@@ -456,42 +491,46 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
             print(f"  Iteration {it}: refining {n_edges} edges")
         if progress is not None:
             progress(f"iteration {it}: walking {n_edges} edges")
-        wstat = {}
-        if kind == "exact":
-            pos, done = neargrid.neargrid_walk(exact(), starts, shape, cap,
-                                               known)
-        else:
-            pos, done = _walk_padded(kind, quant, exact, starts, shape, cap,
-                                     known, wstat)
-        n_capped = int((~done).sum())
-        if n_capped:
-            # step-cap stragglers resolve through their ongrid root
+        with trace.span("refine.iteration", edges=n_edges):
+            wstat = {}
+            if kind == "exact":
+                pos, done = neargrid.neargrid_walk(exact(), starts, shape,
+                                                   cap, known)
+            else:
+                pos, done = _walk_padded(kind, quant, exact, starts, shape,
+                                         cap, known, wstat)
+            n_capped = int((~done).sum())
+            if n_capped:
+                # step-cap stragglers resolve through their ongrid root
+                if verbose:
+                    print(f"  {n_capped} trajectories hit the step cap "
+                          f"(resolved through ongrid roots)")
+                if roots is None:
+                    roots = resolve_roots(
+                        parent_from_step_codes(bk)).reshape(-1)
+                pos = torch.where(done, pos, roots[pos.long()])
+            changed = _apply_walk_results(labels, known, starts, pos)
+            total_changed += changed
+            _count_iteration(changed, n_capped, wstat.get("risky", 0))
+            if stats is not None:
+                now = time.perf_counter()
+                stats["iterations"].append(
+                    (n_edges, changed, n_capped, wstat.get("risky", 0),
+                     round(now - t_iter, 3)))
+                stats["block_rounds"].append(wstat.get("block_rounds", []))
+                t_iter = now
             if verbose:
-                print(f"  {n_capped} trajectories hit the step cap "
-                      f"(resolved through ongrid roots)")
-            if roots is None:
-                roots = resolve_roots(parent_from_step_codes(bk)).reshape(-1)
-            pos = torch.where(done, pos, roots[pos.long()])
-        changed = _apply_walk_results(labels, known, starts, pos)
-        total_changed += changed
-        if stats is not None:
-            now = time.perf_counter()
-            stats["iterations"].append(
-                (n_edges, changed, n_capped, wstat.get("risky", 0),
-                 round(now - t_iter, 3)))
-            stats["block_rounds"].append(wstat.get("block_rounds", []))
-            t_iter = now
-        if verbose:
-            print(f"  {changed} points changed.")
-        if changed == 0:
-            converged = True
-            break
-        if it >= max_iters and carry_out is None:
-            break
-        if str(mode).lower() == "all":
-            known = edge_find(reference, labels, is_max)
-        else:
-            known = edge_check(known, labels, is_max)
+                print(f"  {changed} points changed.")
+            if changed == 0:
+                converged = True
+                break
+            if it >= max_iters and carry_out is None:
+                break
+            with trace.span("refine.edges"):
+                if str(mode).lower() == "all":
+                    known = edge_find(reference, labels, is_max)
+                else:
+                    known = edge_check(known, labels, is_max)
     if carry_out is not None:
         if converged:
             carry_out["converged"] = True
@@ -499,6 +538,13 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
             carry_out.update(known=known, bk=bk, is_max=is_max,
                              rows=exact.value, qrows=quant.value)
     return labels, total_changed
+
+
+def _count_iteration(changed, cap_fires, risky):
+    """The counters of a 'refine.iteration' span beside its ``edges``."""
+    trace.count("changed", changed)
+    trace.count("cap_fires", cap_fires)
+    trace.count("risky", risky)
 
 
 def _refine_mesh(mesh, mode, max_iters, reference, labels, weights, t_grad,
@@ -522,8 +568,10 @@ def _refine_mesh(mesh, mode, max_iters, reference, labels, weights, t_grad,
     bk = sharded.step_codes(rho, weights, vac)
     is_max = Sharded(lay, [(b == 13) & ~v
                            for b, v in zip(bk.blocks, vac.blocks)])
-    known = sharded.edges_find(labels, is_max)
-    rows = shard_rows(rho, bk, t_grad, True)
+    with trace.span("refine.edges"):
+        known = sharded.edges_find(labels, is_max)
+    with trace.span("refine.rows"):
+        rows = shard_rows(rho, bk, t_grad, True)
     cap = neargrid.refine_cap(lay.shape) if step_cap is None else step_cap
     roots = None  # resolved on the first step-cap fire
     total_changed = 0
@@ -545,38 +593,42 @@ def _refine_mesh(mesh, mode, max_iters, reference, labels, weights, t_grad,
             print(f"  Iteration {it}: refining {n_edges} edges")
         if progress is not None:
             progress(f"iteration {it}: walking {n_edges} edges")
-        pos, done = walk_sharded(mesh, starts, rho, bk,
-                                 known.map(lambda k: k == 2), t_grad, True,
-                                 cap, rows=rows)
-        n_capped = int((~done).sum())
-        if n_capped:
+        with trace.span("refine.iteration", edges=n_edges):
+            pos, done = walk_sharded(mesh, starts, rho, bk,
+                                     known.map(lambda k: k == 2), t_grad,
+                                     True, cap, rows=rows)
+            n_capped = int((~done).sum())
+            if n_capped:
+                if verbose:
+                    print(f"  {n_capped} trajectories hit the step cap "
+                          f"(resolved through ongrid roots)")
+                if roots is None:
+                    roots = sharded_chase(mesh, Sharded(lay, [
+                        lay.parent(b, s) for s, b in enumerate(bk.blocks)]),
+                        bk)
+                pos = torch.where(done, pos, take(roots, pos))
+            # every old and new label is gathered before any is written
+            new, old = take(labels, pos), take(labels, starts)
+            moved = new != old
+            put(labels, starts, new)
+            put(known, starts, torch.where(moved, -2, -1).to(torch.int8))
+            changed = int(moved.sum())
+            total_changed += changed
+            _count_iteration(changed, n_capped, 0)
+            if stats is not None:
+                now = time.perf_counter()
+                stats["iterations"].append(
+                    (n_edges, changed, n_capped, 0, round(now - t_iter, 3)))
+                t_iter = now
             if verbose:
-                print(f"  {n_capped} trajectories hit the step cap "
-                      f"(resolved through ongrid roots)")
-            if roots is None:
-                roots = sharded_chase(mesh, Sharded(lay, [
-                    lay.parent(b, s) for s, b in enumerate(bk.blocks)]), bk)
-            pos = torch.where(done, pos, take(roots, pos))
-        # every old and new label is gathered before any is written
-        new, old = take(labels, pos), take(labels, starts)
-        moved = new != old
-        put(labels, starts, new)
-        put(known, starts, torch.where(moved, -2, -1).to(torch.int8))
-        changed = int(moved.sum())
-        total_changed += changed
-        if stats is not None:
-            now = time.perf_counter()
-            stats["iterations"].append(
-                (n_edges, changed, n_capped, 0, round(now - t_iter, 3)))
-            t_iter = now
-        if verbose:
-            print(f"  {changed} points changed.")
-        if changed == 0 or it >= max_iters:
-            break
-        if mode == "all":
-            known = sharded.edges_find(labels, is_max)
-        else:
-            known = sharded.edges_check(known, labels, is_max)
+                print(f"  {changed} points changed.")
+            if changed == 0 or it >= max_iters:
+                break
+            with trace.span("refine.edges"):
+                if mode == "all":
+                    known = sharded.edges_find(labels, is_max)
+                else:
+                    known = sharded.edges_check(known, labels, is_max)
     return labels, total_changed
 
 

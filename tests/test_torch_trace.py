@@ -1,0 +1,258 @@
+"""The port's spans and counters (``pybader_tpu_torch.trace``): nesting,
+counters, no-ops outside an analysis, the profiler ranges, and a
+``Bader(..., device='cpu')`` call on the committed CHGCAR fixture whose
+spans agree with ``stage_seconds`` and with the refinement's own stats."""
+import contextlib
+import io
+import os
+from collections import Counter, defaultdict
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from pybader_tpu_torch import pipeline, trace
+from pybader_tpu_torch.interface import Bader
+from pybader_tpu_torch.io import vasp
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(HERE, "fixtures", "CHGCAR_fixture")
+COUNTERS = ("edges", "changed", "cap_fires", "risky")
+
+
+def test_spans_nest_with_parent_ids():
+    spans = []
+    with trace.recording(spans):
+        with trace.span("a"):
+            with trace.span("b"):
+                with trace.span("c"):
+                    pass
+            with trace.span("d"):
+                pass
+        with trace.span("e"):
+            pass
+    assert [s.name for s in spans] == ["a", "b", "c", "d", "e"]
+    assert [s.id for s in spans] == [0, 1, 2, 3, 4]
+    assert [s.parent for s in spans] == [None, 0, 1, 0, None]
+    for s in spans:
+        assert s.start_ns <= s.end_ns
+        if s.parent is not None:
+            p = spans[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+
+
+def test_counters_attach_to_the_innermost_span():
+    spans = []
+    with trace.recording(spans):
+        with trace.span("outer", bytes=5) as outer:
+            trace.count("edges", 2)
+            with trace.span("inner"):
+                trace.count("edges", 3)
+                trace.count("edges", 4)
+                trace.count("changed", 1)
+            trace.count("edges", 10)
+    assert outer is spans[0]
+    assert spans[0].counters == {"bytes": 5, "edges": 12}
+    assert spans[1].counters == {"edges": 7, "changed": 1}
+
+
+def test_span_and_count_are_no_ops_outside_an_analysis(monkeypatch):
+    monkeypatch.setattr(trace, "profiled", defaultdict(Counter))
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("loose", bytes=1) as s:
+            trace.count("edges", 1)
+    assert s is None
+    assert trace._active is None
+    assert not trace.profiled
+    # a recording restores the state it found
+    spans = []
+    with trace.recording(spans), trace.span("a"):
+        pass
+    assert trace._active is None and len(spans) == 1
+
+
+def test_profiler_ranges_only_under_a_profiler(monkeypatch):
+    monkeypatch.setattr(trace, "profiled", defaultdict(Counter))
+    spans = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.recording(spans):
+            with trace.span("analysis"):
+                with trace.span("upload.x", bytes=8):
+                    pass
+    names = [e.name for e in prof.events()]
+    assert "pb.analysis" in names and "pb.upload.x" in names
+    assert trace.profiled["upload.x"]["bytes"] == 8
+    assert trace.profiled["analysis"]["count"] == 1
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) without a profiler")
+    monkeypatch.setattr(trace, "record_function", refuse)
+    monkeypatch.setattr(trace, "profiled", defaultdict(Counter))
+    with trace.recording([]), trace.span("analysis"), trace.span("host.x"):
+        pass
+    assert not trace.profiled
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.float64])
+def test_moved_counts_the_bus_in_the_copied_dtype(dtype):
+    t = torch.zeros((3, 4, 5), dtype=dtype)
+    size = 60 * t.element_size()
+    assert trace.moved(t, "cuda") == size
+    assert trace.moved(t, torch.device("cuda", 0)) == size
+    assert trace.moved(t, "cpu") == 0
+    assert trace.moved(t, torch.device("cpu")) == 0
+    # Bader._dev casts on the host and counts the tensor it copies: an
+    # upload to int32 moves int32 bytes whatever the host array's dtype
+    # ('meta' stands in for a card: its copies count, and move no data)
+    b = Bader.__new__(Bader)
+    b.device = "meta"
+    spans = []
+    with trace.recording(spans):
+        up = b._dev(t.numpy(), torch.int32, "x")
+        again = b._dev(up, torch.float64, "y")
+    assert up.dtype == torch.int32 and up.device.type == "meta"
+    assert again.dtype == torch.float64
+    assert [(s.name, s.counters) for s in spans] == [
+        ("upload.x", {"bytes": 60 * 4}), ("upload.y", {"bytes": 0})]
+
+
+def test_a_span_entered_directly_times_outside_a_recording():
+    with trace.Span("stage.x") as s:
+        pass
+    assert s.id is None and s.parent is None and s.counters == {}
+    assert s.seconds >= 0
+    spans = []
+    with trace.recording(spans), trace.span("analysis"):
+        with trace.Span("stage.y") as inner:
+            pass
+    assert spans == [spans[0], inner] and inner.parent == 0
+    assert trace._active is None
+
+
+def _quiet_call(b):
+    with contextlib.redirect_stdout(io.StringIO()):
+        b()
+    return b
+
+
+@pytest.fixture(scope="module", params=["full", "hybrid"])
+def traced(request, tmp_path_factory):
+    """A default-profile call on the fixture (full trajectories, or the
+    hybrid forced), and the refinement stats of the same steps run
+    directly."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("PYBADER_TPU_FULL_TRAJECTORIES",
+              "1" if request.param == "full" else "0")
+    try:
+        out = tmp_path_factory.mktemp("dat")
+        with contextlib.redirect_stdout(io.StringIO()):
+            density, lattice, atoms, info = vasp.read(FIXTURE)
+        b = _quiet_call(Bader(density, lattice, atoms, info, device="cpu",
+                              output="dat", prefix=str(out) + os.sep))
+        rho = torch.as_tensor(density["charge"])
+        weights = tuple(b.distance_weights)
+        carry, stats, refine = {}, {}, {}
+        labels, _ = pipeline.partition_neargrid(
+            rho, None, weights, b.T_grad, carry_out=carry, stats=stats)
+        pipeline.refine_labels(
+            "neargrid", ("changed", 2), rho, labels, weights, b.T_grad,
+            verbose=False, carry_in=carry or None, stats=refine)
+        iterations = stats.get("iterations", []) + \
+            refine.get("iterations", [])
+    finally:
+        mp.undo()
+    return b, iterations
+
+
+def test_stage_spans_match_stage_seconds(traced):
+    b, _ = traced
+    stages = {s.name[len("stage."):]: s.seconds for s in b.spans
+              if s.name.startswith("stage.")}
+    # stage_seconds is read from the stage spans: one clock
+    assert stages == b.stage_seconds
+    assert list(stages) == list(b.stage_seconds)
+
+
+def test_iteration_counters_match_refine_stats(traced):
+    b, iterations = traced
+    got = [tuple(s.counters[k] for k in COUNTERS) for s in b.spans
+           if s.name == "refine.iteration"]
+    assert got == [tuple(it[:4]) for it in iterations]
+    assert len(got) >= 1
+
+
+def test_copies_read_zero_bytes_on_the_cpu(traced):
+    b, _ = traced
+    copies = [s for s in b.spans
+              if s.name.startswith(("upload.", "download."))]
+    names = {s.name for s in copies}
+    assert {"upload.reference", "upload.density", "download.bader_volumes",
+            "download.refined", "download.atoms_volumes"} <= names
+    assert all(s.counters == {"bytes": 0} for s in copies)
+
+
+def test_call_spans_are_few_closed_and_rooted(traced):
+    b, _ = traced
+    spans = b.spans
+    assert len(spans) <= 100
+    assert [s.name for s in spans[:2]] == ["init", "analysis"]
+    assert [s.id for s in spans] == list(range(len(spans)))
+    assert [s.name for s in spans if s.parent is None] == ["init",
+                                                           "analysis"]
+    for s in spans:
+        assert s.end_ns is not None
+        if s.parent is not None:
+            p = spans[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+    # host_ms sums the host spans: none may sit inside another
+    for s in spans:
+        if s.name.startswith("host."):
+            p = s.parent
+            while p is not None:
+                assert not spans[p].name.startswith("host."), s.name
+                p = spans[p].parent
+    kinds = Counter(s.name.split(".")[0] for s in spans)
+    assert kinds["host"] >= 5 and kinds["stage"] == 6
+
+
+def test_second_call_keeps_init_and_replaces_the_rest(tmp_path):
+    with contextlib.redirect_stdout(io.StringIO()):
+        b = Bader(*vasp.read(FIXTURE), device="cpu", output="dat",
+                  prefix=str(tmp_path) + os.sep)
+    init = b.spans[0]
+    first = [s.name for s in _quiet_call(b).spans]
+    second = [s.name for s in _quiet_call(b).spans]
+    assert b.spans[0] is init
+    assert second == first
+    assert [s.id for s in b.spans] == list(range(len(b.spans)))
+
+
+def test_spans_are_not_pickled(traced):
+    b, _ = traced
+    assert "spans" not in b.__getstate__()
+    assert hasattr(b, "spans")
+
+
+def test_profiled_call_sums_its_spans(monkeypatch, tmp_path):
+    monkeypatch.setattr(trace, "profiled", defaultdict(Counter))
+    monkeypatch.setenv("PYBADER_TPU_FULL_TRAJECTORIES", "0")
+    with contextlib.redirect_stdout(io.StringIO()):
+        density, lattice, atoms, info = vasp.read(FIXTURE)
+    kwargs = dict(device="cpu", output="dat", prefix=str(tmp_path) + os.sep)
+    # outside the profiler: nothing summed
+    _quiet_call(Bader(density, lattice, atoms, info, **kwargs))
+    assert not trace.profiled
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        b = Bader(density, lattice, atoms, info, **kwargs)
+        _quiet_call(b)
+    names = {e.name for e in prof.events()}
+    assert {"pb.init", "pb.analysis", "pb.refine.iteration",
+            "pb.stage.Refining volume edges"} <= names
+    got = trace.profiled
+    assert got["analysis"]["count"] == 1 and got["init"]["count"] == 1
+    edges = sum(s.counters["edges"] for s in b.spans
+                if s.name == "refine.iteration")
+    assert got["refine.iteration"]["edges"] == edges > 0
+    assert got["host.results"]["count"] == 2
+    assert np.isclose(got["analysis"]["ns"] * 1e-9, b.spans[1].seconds)
