@@ -3,8 +3,11 @@
 Port of :mod:`pybader_tpu.interface`: the same configurable attributes,
 result attributes, geometry properties, pipeline entry (``__call__``),
 text results and pickle persistence.  Results are numpy arrays, as in the
-JAX package; each stage moves its inputs to ``device`` ("cuda" by default,
-"cpu" for the plain PyTorch versions) and brings its outputs back.
+JAX package.  The stages run on ``device`` ("cuda" by default, "cpu" for
+the plain PyTorch versions).  Inside a call the grids stay there from
+stage to stage: each input grid is uploaded once, and each result label
+grid is downloaded once, when it is final.  A stage called on its own
+uploads its inputs from the host attributes and downloads its results.
 
 With ``Bader.mesh`` set to a mesh of more than one shard
 (:func:`pybader_tpu_torch.parallel.make_mesh`), the partition, refinement,
@@ -44,27 +47,37 @@ _WRITERS = {"VASP": io.vasp.write, "cube": io.cube.write,
             "gpaw": io.cube.write, "pymatgen object": io.vasp.write}
 
 
-def _host(grid, what) -> np.ndarray:
+def _host(grid, what, dtype=None) -> np.ndarray:
     """A result tensor, whole or sharded, as host numpy (the attributes
     that ``results()``, the pickle and the writers read), in a
-    ``download.<what>`` span."""
+    ``download.<what>`` span.  ``dtype``, a numpy dtype, casts a whole
+    tensor on its device before the copy, so that only that dtype
+    crosses; a sharded grid is cast on the host after its join."""
     if isinstance(grid, Sharded):
         nbytes = sum(trace.moved(b, "cpu") for b in grid.blocks)
         with trace.span("download." + what, bytes=nbytes):
-            return grid.join().numpy()
+            out = grid.join().numpy()
+        if dtype is not None:
+            with trace.span("host.astype"):
+                out = out.astype(dtype)
+        return out
+    if dtype is not None:
+        grid = grid.to(getattr(torch, np.dtype(dtype).name))
     with trace.span("download." + what, bytes=trace.moved(grid, "cpu")):
         return grid.cpu().numpy()
 
 
 @contextmanager
-def _stage(name, multiline=False, record=None):
+def _stage(name, multiline=False, record=None, device=None):
     """Stage header + wall-clock print + live tick line.
 
     Yields a ``tick(msg)`` callable that overwrites one console line.
-    Every stage ends by copying its results to the host, which waits for
-    the device, so the wall time covers the device work.  ``record``, a
-    dict, receives ``record[name] = seconds``, the duration of the stage's
-    span, ``stage.<name>``.
+    Inside a call a stage may end with its results still on the device,
+    so on a CUDA ``device`` the stage ends by waiting for the device:
+    the wall time covers the stage's device work, and none of it is
+    billed to the next stage.  ``record``, a dict, receives
+    ``record[name] = seconds``, the duration of the stage's span,
+    ``stage.<name>``.
     """
     if multiline:
         print(f"  {name}:")
@@ -78,6 +91,8 @@ def _stage(name, multiline=False, record=None):
 
     with trace.Span("stage." + name) as span:
         yield tick
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
     dt = span.seconds
     if record is not None:
         record[name] = dt
@@ -192,10 +207,22 @@ class Bader:
     ``cap_fires`` and ``risky`` record how it converged; each copy is an
     ``upload.<what>`` or ``download.<what>`` span with the ``bytes`` that
     crossed.
+
+    Inside a call the grids stay on ``device``.  Each input grid (the
+    density; the reference and the spin where they are other arrays) is
+    uploaded once, at its first use, and the label grids pass from stage
+    to stage as int32 tensors.  The call holds them in ``_resident``, by
+    name, which it clears as it ends and which is never pickled; a stage
+    that takes a held grid records a ``resident.<what>`` span whose
+    ``bytes`` are the tensor's size.  ``bader_volumes`` and
+    ``atoms_volumes`` are downloaded once each, when final, cast on the
+    device to their ``dtype_calc`` dtype.  On a mesh nothing is held, and
+    the stages take host arrays, as a stage called on its own does.
     """
 
     device = "cuda"
     mesh = None  # class default; set per instance for multi-device runs
+    _resident = None  # a call's grids on the device (per call, not pickled)
 
     def __init__(self, density_dict, lattice, atoms, file_info, **kwargs):
         # the spans of this object (pybader_tpu_torch.trace): 'init', then
@@ -442,7 +469,9 @@ class Bader:
     def _dev(self, array, dtype, what):
         """``array`` (numpy or tensor) as a contiguous tensor on device, in
         an ``upload.<what>`` span whose ``bytes`` are those of the tensor
-        handed to the copy."""
+        handed to the copy.  Inside a call only the input grids come here,
+        each once (:meth:`_input`); a label grid comes here only in a
+        stage called on its own, cast to ``dtype`` on the host first."""
         t = torch.as_tensor(array)
         with trace.span("upload." + what):
             if t.is_cpu and t.dtype != dtype:
@@ -451,6 +480,54 @@ class Bader:
                 t = t.to(dtype)
             trace.count("bytes", trace.moved(t, self.device))
             return t.to(device=self.device, dtype=dtype).contiguous()
+
+    def _take(self, what, dtype, array=None):
+        """Grid ``what`` on the device: the tensor this call holds, in a
+        ``resident.<what>`` span whose ``bytes`` are the size of what did
+        not cross, else ``array`` (by default the attribute ``what``)
+        uploaded (:meth:`_dev`)."""
+        t = None if self._resident is None else self._resident.get(what)
+        if t is None:
+            return self._dev(getattr(self, what) if array is None else array,
+                             dtype, what)
+        with trace.span("resident." + what,
+                        bytes=t.numel() * t.element_size()):
+            return t
+
+    def _input(self, name):
+        """Input grid ``name`` ('density', 'reference' or 'spin') on the
+        device in f64 (:meth:`_take`), held for the rest of a call: a call
+        uploads each array once, and a grid that is the density's array
+        is the density's tensor."""
+        if name != 'density' and getattr(self, name) is self.density:
+            name = 'density'
+        t = self._take(name, torch.float64)
+        if self._resident is not None:
+            self._resident[name] = t
+        return t
+
+    def _label_dtype(self, what):
+        """``dtype_calc``'s dtype of label grid ``what``: signed, sized by
+        the count of its labels (maxima or atoms)."""
+        n = self._bader_maxima.shape[0] if what == 'bader_volumes' \
+            else self.atoms.shape[0]
+        return dtype_calc(-max(int(n), 1))
+
+    def _give(self, what, labels):
+        """The label grid a stage made for attribute ``what``: held on the
+        device for the rest of a call, else downloaded as the attribute."""
+        if self._resident is not None:
+            self._resident[what] = labels
+        else:
+            setattr(self, what, _host(labels, what, self._label_dtype(what)))
+
+    def _keep(self, what):
+        """Download label grid ``what``, which this call holds, as the host
+        attribute, cast on the device to :meth:`_label_dtype`: once a
+        call, when the grid is final."""
+        if self._resident is not None:
+            setattr(self, what, _host(self._resident[what], what,
+                                      self._label_dtype(what)))
 
     def __call__(self, **kwargs):
         """Run the full Bader pipeline (reference interface.py:399-447).
@@ -466,20 +543,28 @@ class Bader:
         self.apply_config(kwargs)
         self._dataframe = None
         self.stage_seconds = {}
-        self.volumes_init()
-        self.bader_calc()
-        if not self.speed_flag:
-            self.refine_volumes(self.bader_volumes)
-            self.sum_volumes(bader=True)
-        self.bader_to_atom_distance()
-        if self.speed_flag:
-            self.refine_volumes(self.atoms_volumes)
-            try:
-                del self.bader_volumes
-            except AttributeError:
-                pass
-        self.min_surface_distance()
-        self.sum_volumes()
+        # the grids this call holds on the device, by name; none on a mesh,
+        # whose stages take host arrays to parallel/
+        self._resident = None if self._multi_mesh() else {}
+        try:
+            self.volumes_init()
+            self.bader_calc()
+            if not self.speed_flag:
+                self.refine_volumes('bader_volumes')
+                self._keep('bader_volumes')
+                self.sum_volumes(bader=True)
+            self.bader_to_atom_distance()
+            if self.speed_flag:
+                self.refine_volumes('atoms_volumes')
+                try:
+                    del self.bader_volumes
+                except AttributeError:
+                    pass
+            self._keep('atoms_volumes')
+            self.min_surface_distance()
+            self.sum_volumes()
+        finally:
+            del self._resident
         if self.export_mode is not None:
             print(f"\n  Writing Bader {self.export_mode[0]} to file:")
             count = (
@@ -513,53 +598,65 @@ class Bader:
         print('Done.')
 
     def volumes_init(self, volumes=None):
-        """Initialise (or re-mask) the volumes array using vacuum_tol."""
-        if volumes is None:
-            dtype = dtype_calc(-int(np.prod(self.density.shape)))
-            volumes = np.zeros(self.density.shape, dtype=dtype)
-        else:
-            volumes = np.asarray(volumes)
+        """Initialise (or re-mask) the volumes array using vacuum_tol.
+
+        Inside a call (``volumes`` None) no host grid is made: the mask
+        stays on the device, held for :meth:`bader_calc` as ``vacuum``
+        (None where ``vacuum_tol`` is None or no voxel is vacuum)."""
+        mask = None
         if self.vacuum_tol is not None:
             try:
                 vac_tol = np.float64(self.vacuum_tol)
+                reference = self._input('reference')
+                density = reference if self.reference is self.density \
+                    else self._input('density')
                 mask, vc, vv = reductions.vacuum_mask(
-                    self._dev(self.reference, torch.float64, "reference"),
-                    float(vac_tol),
-                    self._dev(self.density, torch.float64, "density"),
-                    self.voxel_volume,
-                )
-                mask = _host(mask, "vacuum_mask")
-                # the host spans also release the grids they consumed:
-                # unmapping their pages is host time too
-                with trace.span("host.vacuum_where"):
-                    volumes = np.where(
-                        mask, np.array(-1, dtype=volumes.dtype), volumes)
-                    del mask
+                    reference, float(vac_tol), density, self.voxel_volume)
                 self.vacuum_charge = vc
                 self.vacuum_volume = vv
             except (ValueError, TypeError) as e:
                 print(f"  VACUUM_TOL ERROR: {self.vacuum_tol} is not float")
                 print(f"  {e}")
+        if volumes is None and self._resident is not None:
+            self._resident['vacuum'] = \
+                mask if mask is not None and bool(mask.any()) else None
+            return
+        if volumes is None:
+            dtype = dtype_calc(-int(np.prod(self.density.shape)))
+            volumes = np.zeros(self.density.shape, dtype=dtype)
+        else:
+            volumes = np.asarray(volumes)
+        if mask is not None:
+            mask = _host(mask, "vacuum_mask")
+            # the host spans also release the grids they consumed:
+            # unmapping their pages is host time too
+            with trace.span("host.vacuum_where"):
+                volumes = np.where(
+                    mask, np.array(-1, dtype=volumes.dtype), volumes)
+                del mask
         self.bader_volumes = volumes
 
     def bader_calc(self):
         """Partition the grid into Bader volumes."""
         weights = tuple(self.distance_weights)
-        vacuum = None
-        vols = np.asarray(self.bader_volumes)
         multi = self._multi_mesh()
-        with trace.span("host.vacuum_scan"):
-            is_vac = vols == -1
-            if not is_vac.any():
-                is_vac = None
-        if is_vac is not None:
-            vacuum = is_vac if multi else self._dev(is_vac, torch.bool,
-                                                    "vacuum")
+        if self._resident is not None:
+            # volumes_init's mask, freed as the partition returns
+            vacuum = self._resident.pop('vacuum', None)
+        else:
+            vacuum = None
+            vols = np.asarray(self.bader_volumes)
+            with trace.span("host.vacuum_scan"):
+                is_vac = vols == -1
+                if not is_vac.any():
+                    is_vac = None
+            if is_vac is not None:
+                vacuum = is_vac if multi else self._dev(is_vac, torch.bool,
+                                                        "vacuum")
         # on a mesh the grids go to the shards' devices, whole from the host
-        reference = self.reference if multi else self._dev(
-            self.reference, torch.float64, "reference")
-        with _stage("Calculating Bader volumes",
-                    record=self.stage_seconds) as tick:
+        reference = self.reference if multi else self._input('reference')
+        with _stage("Calculating Bader volumes", record=self.stage_seconds,
+                    device=self.device) as tick:
             if self.method == 'ongrid':
                 labels, maxima = pipeline.partition_ongrid(
                     reference, vacuum, weights, progress=tick,
@@ -577,17 +674,14 @@ class Bader:
                 self._refine_carry = carry if carry else None
             else:
                 raise ValueError(f"Unknown method: {self.method}")
-            dtype = dtype_calc(-max(int(maxima.shape[0]), 1))
-            labels = _host(labels, "bader_volumes")
-            with trace.span("host.astype"):
-                self.bader_volumes = labels.astype(dtype)
-                del labels
-        self.bader_maxima = maxima
+            self.bader_maxima = maxima
+            self._give('bader_volumes', labels)
 
     def bader_to_atom_distance(self):
         """Assign each Bader maximum to its nearest atom (27 pbc images)."""
         maxima_cart = self.bader_maxima
-        with _stage("Assigning maxima to atoms", record=self.stage_seconds):
+        with _stage("Assigning maxima to atoms", record=self.stage_seconds,
+                    device=self.device):
             atom_idx, dist = atoms_ops.assign_to_atoms(
                 self._dev(maxima_cart, torch.float64, "maxima"),
                 self._dev(self.atoms, torch.float64, "atoms"),
@@ -600,35 +694,42 @@ class Bader:
                                              self.bader_atoms)
             else:
                 atoms_vols = reductions.relabel(
-                    self._dev(self.bader_volumes, torch.int32,
-                              "bader_volumes"), atom_idx)
-            dtype = dtype_calc(-max(int(self.atoms.shape[0]), 1))
-            atoms_vols = _host(atoms_vols, "atoms_volumes")
-            with trace.span("host.astype"):
-                self.atoms_volumes = atoms_vols.astype(dtype)
-                del atoms_vols
+                    self._take('bader_volumes', torch.int32), atom_idx)
+                if self._resident is not None:
+                    # the atom map takes the basin map's place on the device
+                    self._resident.pop('bader_volumes', None)
+            self._give('atoms_volumes', atoms_vols)
 
     def refine_volumes(self, volumes):
-        """Refine edges of the given label map in place."""
+        """Refine edges of a label map.
+
+        ``volumes`` is a host label grid, refined in place, or the name of
+        a label attribute ('bader_volumes' or 'atoms_volumes'): a grid
+        that the call holds on the device is refined there, and stays."""
         # continuation state from the hybrid neargrid partition applies
         # only to the label map it was computed against (bader_volumes);
         # the speed path refines the atom-relabelled map, whose edge
         # structure differs, and starts fresh.  Single-use either way.
         carry = getattr(self, '_refine_carry', None)
         self._refine_carry = None
-        if volumes is not getattr(self, 'bader_volumes', None):
+        if isinstance(volumes, str):
+            what, volumes = volumes, getattr(self, volumes, None)
+        else:
+            what = 'bader_volumes' \
+                if volumes is getattr(self, 'bader_volumes', None) \
+                else 'volumes'
+        if what != 'bader_volumes':
             carry = None
         with _stage("Refining volume edges", multiline=True,
-                    record=self.stage_seconds) as tick:
+                    record=self.stage_seconds, device=self.device) as tick:
             if not pipeline.refinement_runs(self.refine_method,
                                             self.refine_mode):
                 return  # nothing to upload for a no-op
             if self._multi_mesh():
                 reference, labels = self.reference, np.asarray(volumes)
             else:
-                reference = self._dev(self.reference, torch.float64,
-                                      "reference")
-                labels = self._dev(volumes, torch.int32, "volumes")
+                reference = self._input('reference')
+                labels = self._take(what, torch.int32, volumes)
             # each iteration's work reaches self.spans as the counters of
             # its 'refine.iteration' span
             refined, _ = pipeline.refine_labels(
@@ -636,9 +737,10 @@ class Bader:
                 tuple(self.distance_weights), self.T_grad,
                 progress=tick, carry_in=carry, mesh=self.mesh,
             )
-            refined = _host(refined, "refined")
-            with trace.span("host.astype"):
-                refined = refined.astype(volumes.dtype)
+            if what in (self._resident or ()):
+                self._resident[what] = refined
+                return
+            refined = _host(refined, "refined", volumes.dtype)
             with trace.span("host.copyto"):
                 np.copyto(volumes, refined)
                 del refined
@@ -647,50 +749,47 @@ class Bader:
         """Integrate charge/spin/volume per Bader volume or per atom."""
         if bader:
             n = self._bader_maxima.shape[0]
-            labels = self.bader_volumes
             prefix = 'bader'
         else:
             n = self.atoms.shape[0]
-            labels = self.atoms_volumes
             prefix = 'atoms'
         with _stage(f"Integrating {prefix} charges",
-                    record=self.stage_seconds):
+                    record=self.stage_seconds, device=self.device):
             if self._multi_mesh():
-                def sums(density):
+                labels = getattr(self, f'{prefix}_volumes')
+
+                def sums(name):
                     charge, volume = sharded_charge_volume_sum(
-                        self.mesh, density, labels, self.voxel_volume, n)
+                        self.mesh, getattr(self, name), labels,
+                        self.voxel_volume, n)
                     return charge.numpy(), volume.numpy()
             else:
-                labels_dev = self._dev(labels, torch.int32, "labels")
+                labels_dev = self._take(f'{prefix}_volumes', torch.int32)
 
-                def sums(density):
+                def sums(name):
                     charge, volume = reductions.charge_volume_sum(
-                        self._dev(density, torch.float64, "density"),
-                        labels_dev, self.voxel_volume, n)
+                        self._input(name), labels_dev, self.voxel_volume, n)
                     return _host(charge, "charge"), _host(volume, "volume")
 
-            charge, volume = sums(self.density)
+            charge, volume = sums('density')
             setattr(self, f'{prefix}_charge', charge)
             setattr(self, f'{prefix}_volume', volume)
             if self.spin_bool:
-                spin, _ = sums(self.spin)
+                spin, _ = sums('spin')
                 setattr(self, f'{prefix}_spin', spin)
 
     def min_surface_distance(self):
         """Minimum distance from each atom to its Bader-volume surface."""
         atoms = self.atoms - self.voxel_offset
         with _stage("Calculating min. surface distance",
-                    record=self.stage_seconds):
+                    record=self.stage_seconds, device=self.device):
             if self._multi_mesh():
                 self.atoms_surface_distance = sharded_min_surface_distance(
                     self.mesh, self.reference, self.atoms_volumes,
                     self.lattice, atoms, int(self.atoms.shape[0])).numpy()
                 return
-            labels = self._dev(self.atoms_volumes, torch.int32,
-                               "atoms_volumes")
-            known = edges_ops.edge_find(
-                self._dev(self.reference, torch.float64, "reference"),
-                labels)
+            labels = self._take('atoms_volumes', torch.int32)
+            known = edges_ops.edge_find(self._input('reference'), labels)
             # the lattice stays on the host: the kernel takes it by value
             dist = atoms_ops.surface_distance_masked(
                 labels, known == -2,
@@ -748,11 +847,13 @@ class Bader:
 
     def __getstate__(self):
         # a mesh holds live devices: never pickled; the refine carry is
-        # transient device state (the walk rows), the spans a measurement
+        # transient device state (the walk rows), as are a call's resident
+        # grids; the spans a measurement
         # of this process
         state = dict(self.__dict__)
         state.pop('mesh', None)
         state.pop('_refine_carry', None)
+        state.pop('_resident', None)
         state.pop('spans', None)
         return state
 

@@ -23,9 +23,11 @@ its stage's span.
 
 Names: ``stage.<name>`` (a stage of ``Bader.__call__``),
 ``upload.<what>`` and ``download.<what>`` (counter ``bytes``, what crosses
-between host and device: :func:`moved`), ``host.<what>``
-(numpy work inside the call), ``init``, ``analysis`` (the root),
-``partition.*`` and ``refine.*`` (:mod:`pybader_tpu_torch.pipeline`).
+between host and device: :func:`moved`), ``resident.<what>`` (counter
+``bytes``, the size of a grid that a stage took from the device in place
+of a copy), ``host.<what>`` (numpy work inside the call), ``init``,
+``analysis`` (the root), ``partition.*`` and ``refine.*``
+(:mod:`pybader_tpu_torch.pipeline`).
 """
 from __future__ import annotations
 

@@ -10,18 +10,23 @@ and maxima are identical; charges, volumes and distances agree to 1e-10;
 the CLI's ``-o dat`` files equal the JAX ``results()`` text; the default
 profile meets the fixture's golden charges.
 """
+import contextlib
+import io
 import json
 import os
+import pickle
 import shutil
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
 
 from pybader_tpu.interface import Bader as JaxBader
-from pybader_tpu_torch import entry_points
+from pybader_tpu_torch import entry_points, trace
 from pybader_tpu_torch.interface import Bader
 from pybader_tpu_torch.io import vasp
+from pybader_tpu_torch.utils import dtype_calc
 
 torch.set_num_threads(1)
 
@@ -233,3 +238,75 @@ def test_cli_profile_writes_chrome_trace(tmp_path, monkeypatch):
     trace = tmp_path / "prof" / "trace.json"
     assert trace.exists() and trace.stat().st_size > 0
     assert (tmp_path / "CHGCAR_fixture-atoms.dat").exists()
+
+
+@pytest.fixture(scope="module")
+def vacuum_pair():
+    """The default profile with a vacuum (about a tenth of the voxels)."""
+    jb = JaxBader.from_file(FIXTURE, vacuum_tol=0.2)
+    tb = Bader.from_dict(jb.as_dict, device="cpu")
+    jb(output=None)
+    tb(output=None)
+    assert jb.vacuum_volume > 0
+    return jb, tb
+
+
+@pytest.fixture(scope="module")
+def speed_pair():
+    from pybader_tpu_torch.interface import SPEED_CONFIG
+
+    config = dict(SPEED_CONFIG, vacuum_tol=0.2)
+    jb = JaxBader.from_file(FIXTURE, **config)
+    tb = Bader.from_dict(jb.as_dict, device="cpu", **config)
+    jb(output=None)
+    tb(output=None)
+    return jb, tb
+
+
+@pytest.mark.parametrize("which", ["pair", "default_pair", "vacuum_pair",
+                                   "speed_pair"])
+def test_result_label_grids_are_numpy_in_the_dtype_calc_dtype(which,
+                                                              request):
+    """The grids that stay on the device during a call reach the object
+    as numpy, in the dtype the JAX package gives them, and equal."""
+    jb, tb = request.getfixturevalue(which)
+    counts = {"bader_volumes": len(tb.bader_maxima_fractional),
+              "atoms_volumes": len(tb.atoms)}
+    keys = ["atoms_volumes"] if tb.speed_flag else list(counts)
+    assert hasattr(tb, "bader_volumes") == (not tb.speed_flag)
+    for key in keys:
+        got, want = getattr(tb, key), getattr(jb, key)
+        assert type(got) is np.ndarray, key
+        assert got.dtype == np.dtype(dtype_calc(-counts[key])) == want.dtype
+        np.testing.assert_array_equal(got, want, err_msg=key)
+    assert "_resident" not in tb.__dict__
+
+
+def test_standalone_stages_re_threshold_like_jax(default_pair):
+    """``bader-read -vac``'s stages on unpickled objects: ``volumes_init``
+    on a label grid and ``sum_volumes`` take host attributes, hold no grid,
+    and sum as the JAX package does; the mask comes from one upload."""
+    jb, tb = (pickle.loads(pickle.dumps(b)) for b in default_pair)
+    spans = []
+    for b in (jb, tb):
+        b.vacuum_tol = 0.25
+        with contextlib.redirect_stdout(io.StringIO()), \
+                trace.recording(spans if b is tb else []):
+            b.volumes_init(volumes=b.bader_volumes)
+            b.sum_volumes(bader=True)
+            b.volumes_init(volumes=b.atoms_volumes)
+            b.atoms_volumes = b.bader_volumes
+            b.sum_volumes()
+    assert tb.vacuum_volume > 0
+    np.testing.assert_array_equal(tb.atoms_volumes, jb.atoms_volumes)
+    for key in ("bader_charge", "bader_volume", "atoms_charge",
+                "atoms_volume", "vacuum_charge", "vacuum_volume"):
+        np.testing.assert_allclose(getattr(tb, key), getattr(jb, key),
+                                   rtol=0, atol=1e-10, err_msg=key)
+    names = Counter(s.name for s in spans)
+    assert not [k for k in names if k.startswith("resident.")]
+    assert names["upload.reference"] == 0
+    assert names["upload.density"] == 4  # two masks, two sums
+    assert names["download.vacuum_mask"] == 2
+    assert names["upload.bader_volumes"] == names["upload.atoms_volumes"] \
+        == 1

@@ -5,6 +5,7 @@ spans agree with ``stage_seconds`` and with the refinement's own stats."""
 import contextlib
 import io
 import os
+import pickle
 from collections import Counter, defaultdict
 
 import numpy as np
@@ -13,7 +14,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from pybader_tpu_torch import pipeline, trace
-from pybader_tpu_torch.interface import Bader
+from pybader_tpu_torch.interface import SPEED_CONFIG, Bader
 from pybader_tpu_torch.io import vasp
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -187,8 +188,11 @@ def test_copies_read_zero_bytes_on_the_cpu(traced):
     copies = [s for s in b.spans
               if s.name.startswith(("upload.", "download."))]
     names = {s.name for s in copies}
-    assert {"upload.reference", "upload.density", "download.bader_volumes",
-            "download.refined", "download.atoms_volumes"} <= names
+    # the density crosses once; the refined labels and the reference (the
+    # density's array) stay on the device
+    assert {"upload.density", "download.bader_volumes",
+            "download.atoms_volumes"} <= names
+    assert not {"upload.reference", "download.refined"} & names
     assert all(s.counters == {"bytes": 0} for s in copies)
 
 
@@ -213,7 +217,8 @@ def test_call_spans_are_few_closed_and_rooted(traced):
                 assert not spans[p].name.startswith("host."), s.name
                 p = spans[p].parent
     kinds = Counter(s.name.split(".")[0] for s in spans)
-    assert kinds["host"] >= 5 and kinds["stage"] == 6
+    # the host's work in a call is the .dat files': two texts, two writes
+    assert kinds["host"] == 4 and kinds["stage"] == 6
 
 
 def test_second_call_keeps_init_and_replaces_the_rest(tmp_path):
@@ -256,3 +261,162 @@ def test_profiled_call_sums_its_spans(monkeypatch, tmp_path):
     assert got["refine.iteration"]["edges"] == edges > 0
     assert got["host.results"]["count"] == 2
     assert np.isclose(got["analysis"]["ns"] * 1e-9, b.spans[1].seconds)
+
+
+# (profile, the reference another array than the density, vacuum_tol)
+RESIDENT_CASES = [("default", False, None), ("default", True, None),
+                  ("speed", False, None), ("speed", True, None),
+                  ("default", False, 0.2), ("speed", True, 0.2)]
+
+
+@pytest.fixture(scope="module", params=RESIDENT_CASES,
+                ids=["-".join(map(str, c)) for c in RESIDENT_CASES])
+def resident(request, tmp_path_factory):
+    """A call on the fixture whose copies count their tensors' bytes as if
+    they crossed to a card (on the CPU they cross nothing), and the
+    grid's voxel count."""
+    profile, other, vac = request.param
+    mp = pytest.MonkeyPatch()
+    mp.setattr(trace, "moved", lambda t, device: t.numel() * t.element_size())
+    try:
+        out = tmp_path_factory.mktemp("resident")
+        kwargs = dict(SPEED_CONFIG if profile == "speed" else {},
+                      device="cpu", output="dat", prefix=str(out) + os.sep,
+                      vacuum_tol=vac)
+        with contextlib.redirect_stdout(io.StringIO()):
+            b = Bader(*vasp.read(FIXTURE), **kwargs)
+        if other:
+            b.reference = b.density.copy()
+        _quiet_call(b)
+    finally:
+        mp.undo()
+    return b, request.param, b.density.size
+
+
+def test_a_call_uploads_each_input_grid_once(resident):
+    b, (_, other, _), n = resident
+    grids = [s for s in b.spans
+             if s.name.startswith("upload.") and s.counters["bytes"] >= n]
+    # no label grid goes up: every full-grid upload is an f64 input
+    assert all(s.counters["bytes"] == 8 * n for s in grids)
+    want = ["upload.density"] + (["upload.reference"] if other else [])
+    assert sorted(s.name for s in grids) == sorted(want)
+
+
+def test_each_result_grid_downloads_once_when_final(resident):
+    b, (profile, _, _), n = resident
+    grids = Counter(s.name for s in b.spans
+                    if s.name.startswith("download.")
+                    and s.counters["bytes"] >= n)
+    want = ["atoms_volumes"] if profile == "speed" \
+        else ["bader_volumes", "atoms_volumes"]
+    assert grids == Counter("download." + w for w in want)
+    # each crosses in its dtype_calc dtype, cast on the device (int8 here)
+    for s in b.spans:
+        if s.name in grids:
+            grid = getattr(b, s.name[len("download."):])
+            assert grid.dtype == np.int8
+            assert s.counters["bytes"] == grid.nbytes == n
+
+
+def test_no_host_cast_scan_or_copy_in_a_call(resident):
+    b, (profile, _, vac), _ = resident
+    names = Counter(s.name for s in b.spans)
+    assert not {"host.astype", "host.copyto", "host.vacuum_scan",
+                "host.vacuum_where", "download.vacuum_mask",
+                "download.refined", "upload.vacuum"} & set(names)
+    texts = 1 if profile == "speed" else 2
+    assert {k: v for k, v in names.items() if k.startswith("host.")} == \
+        {"host.results": texts, "host.write": texts}
+    if vac is not None:
+        assert b.vacuum_volume > 0 and (b.atoms_volumes == -1).any()
+
+
+def test_resident_spans_count_the_tensor_not_moved(resident):
+    b, (profile, other, vac), n = resident
+    held = [s for s in b.spans if s.name.startswith("resident.")]
+    size = {"resident.density": 8 * n, "resident.reference": 8 * n,
+            "resident.bader_volumes": 4 * n, "resident.atoms_volumes": 4 * n}
+    want = {"resident.bader_volumes", "resident.atoms_volumes"}
+    if other:
+        want.add("resident.reference")
+    # the density, where it is no reference, serves the sums alone: the
+    # speed profile's one sum takes it at its upload
+    if not (other and profile == "speed" and vac is None):
+        want.add("resident.density")
+    assert {s.name for s in held} == want
+    for s in held:
+        assert s.counters == {"bytes": size[s.name]}, s.name
+    # default: the refinement, the basin sums and the relabel take the
+    # partition's labels, the surface and the atom sums the relabel's;
+    # speed: the relabel, then the refinement, surface and sums
+    labels = Counter(s.name for s in held if s.name.endswith("_volumes"))
+    assert labels == ({"resident.bader_volumes": 1,
+                       "resident.atoms_volumes": 3} if profile == "speed"
+                      else {"resident.bader_volumes": 3,
+                            "resident.atoms_volumes": 2})
+    if vac is not None and not other:
+        # the partition takes the density that the vacuum stage uploaded
+        first = next(s for s in b.spans if s.name.startswith("stage."))
+        assert any(s.name == "resident.density" and s.id < first.id
+                   for s in held)
+
+
+@pytest.mark.parametrize("device, waits", [("cuda", 1), ("cuda:0", 1),
+                                           ("cpu", 0), (None, 0)])
+def test_a_stage_on_cuda_ends_by_waiting_for_the_device(monkeypatch, device,
+                                                        waits):
+    from pybader_tpu_torch import interface
+
+    seen = []
+    monkeypatch.setattr(torch.cuda, "synchronize", seen.append)
+    with contextlib.redirect_stdout(io.StringIO()):
+        with interface._stage("x", device=device):
+            assert seen == []
+    assert seen == [device] * waits
+
+
+class NoTorchUnpickler(pickle.Unpickler):
+    """Refuses every torch class, so a pickled tensor cannot load."""
+
+    def find_class(self, module, name):
+        if module == "torch" or module.startswith("torch."):
+            raise AssertionError(f"pickle holds {module}.{name}")
+        return super().find_class(module, name)
+
+
+def test_a_call_pickles_no_tensor_and_no_per_call_state(tmp_path):
+    with contextlib.redirect_stdout(io.StringIO()):
+        b = Bader(*vasp.read(FIXTURE), device="cpu", output="pickle",
+                  prefix=str(tmp_path) + os.sep)
+    _quiet_call(b)
+    assert "_resident" not in b.__dict__ and b._resident is None
+    with open(tmp_path / "bader.p", "rb") as f:
+        back = NoTorchUnpickler(f).load()
+    assert "_resident" not in back.__dict__
+    for key in ("bader_volumes", "atoms_volumes"):
+        assert type(getattr(back, key)) is np.ndarray
+        np.testing.assert_array_equal(getattr(back, key), getattr(b, key))
+    # state held in the middle of a call is never pickled
+    b._resident = {"density": torch.zeros(3, dtype=torch.float64)}
+    assert "_resident" not in b.__getstate__()
+    back = NoTorchUnpickler(io.BytesIO(pickle.dumps(b))).load()
+    assert "_resident" not in back.__dict__
+
+
+def test_a_failed_call_drops_its_grids(tmp_path):
+    with contextlib.redirect_stdout(io.StringIO()):
+        b = Bader(*vasp.read(FIXTURE), device="cpu", output="dat",
+                  prefix=str(tmp_path) + os.sep)
+    seen = {}
+
+    def fail():
+        seen.update(b._resident)
+        raise RuntimeError("stop")
+    b.min_surface_distance = fail
+    with pytest.raises(RuntimeError, match="stop"), \
+            contextlib.redirect_stdout(io.StringIO()):
+        b()
+    assert {"density", "atoms_volumes"} <= set(seen)
+    assert "bader_volumes" not in seen  # freed at the relabel
+    assert "_resident" not in b.__dict__
