@@ -604,22 +604,26 @@ class Bader:
         stays on the device, held for :meth:`bader_calc` as ``vacuum``
         (None where ``vacuum_tol`` is None or no voxel is vacuum)."""
         mask = None
+        held = volumes is None and self._resident is not None
         if self.vacuum_tol is not None:
             try:
                 vac_tol = np.float64(self.vacuum_tol)
                 reference = self._input('reference')
                 density = reference if self.reference is self.density \
                     else self._input('density')
-                mask, vc, vv = reductions.vacuum_mask(
-                    reference, float(vac_tol), density, self.voxel_volume)
+                # vacuum_mask counts the vacuum 'voxels' into this span
+                with trace.span("vacuum.mask"):
+                    mask, vc, vv = reductions.vacuum_mask(
+                        reference, float(vac_tol), density, self.voxel_volume)
+                    if held and not bool(mask.any()):
+                        mask = None
                 self.vacuum_charge = vc
                 self.vacuum_volume = vv
             except (ValueError, TypeError) as e:
                 print(f"  VACUUM_TOL ERROR: {self.vacuum_tol} is not float")
                 print(f"  {e}")
-        if volumes is None and self._resident is not None:
-            self._resident['vacuum'] = \
-                mask if mask is not None and bool(mask.any()) else None
+        if held:
+            self._resident['vacuum'] = mask
             return
         if volumes is None:
             dtype = dtype_calc(-int(np.prod(self.density.shape)))
@@ -759,17 +763,21 @@ class Bader:
                 labels = getattr(self, f'{prefix}_volumes')
 
                 def sums(name):
-                    charge, volume = sharded_charge_volume_sum(
-                        self.mesh, getattr(self, name), labels,
-                        self.voxel_volume, n)
-                    return charge.numpy(), volume.numpy()
+                    with trace.span("sums." + name, labels=n):
+                        charge, volume = sharded_charge_volume_sum(
+                            self.mesh, getattr(self, name), labels,
+                            self.voxel_volume, n)
+                        return charge.numpy(), volume.numpy()
             else:
                 labels_dev = self._take(f'{prefix}_volumes', torch.int32)
 
                 def sums(name):
-                    charge, volume = reductions.charge_volume_sum(
-                        self._input(name), labels_dev, self.voxel_volume, n)
-                    return _host(charge, "charge"), _host(volume, "volume")
+                    grid = self._input(name)  # its upload outside the span
+                    with trace.span("sums." + name, labels=n):
+                        charge, volume = reductions.charge_volume_sum(
+                            grid, labels_dev, self.voxel_volume, n)
+                        return _host(charge, "charge"), _host(volume,
+                                                              "volume")
 
             charge, volume = sums('density')
             setattr(self, f'{prefix}_charge', charge)

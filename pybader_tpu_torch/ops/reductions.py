@@ -15,6 +15,7 @@ import ctypes
 import numpy as np
 import torch
 
+from pybader_tpu_torch import trace
 from pybader_tpu_torch.ops import _cuda
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
@@ -25,12 +26,15 @@ def vacuum_mask(reference: torch.Tensor, vac_tol: float,
     """Mask voxels with reference density <= vac_tol as vacuum.
 
     returns (mask bool grid, vacuum charge, vacuum volume): the charge sums
-    the *density* over the mask, both scaled by the voxel volume.
+    the *density* over the mask, both scaled by the voxel volume.  The
+    vacuum voxel count goes to the open span's ``voxels`` counter
+    (:mod:`pybader_tpu_torch.trace`).
     """
     mask = reference <= vac_tol
     charge = float(torch.where(mask, density, 0.0).sum()) * voxel_vol
-    volume = int(mask.sum()) * voxel_vol
-    return mask, charge, volume
+    voxels = int(mask.sum())
+    trace.count("voxels", voxels)
+    return mask, charge, voxels * voxel_vol
 
 
 # -------------------------------------------------------------- min pair

@@ -25,9 +25,12 @@ Names: ``stage.<name>`` (a stage of ``Bader.__call__``),
 ``upload.<what>`` and ``download.<what>`` (counter ``bytes``, what crosses
 between host and device: :func:`moved`), ``resident.<what>`` (counter
 ``bytes``, the size of a grid that a stage took from the device in place
-of a copy), ``host.<what>`` (numpy work inside the call), ``init``,
-``analysis`` (the root), ``partition.*`` and ``refine.*``
-(:mod:`pybader_tpu_torch.pipeline`).
+of a copy), ``host.<what>`` (numpy work inside the call), ``sums.<what>``
+(the per-label sums of the ``density`` or the ``spin`` and their two small
+downloads; counter ``labels``, the basins or atoms summed over),
+``vacuum.mask`` (the vacuum mask and its reads; counter ``voxels``, the
+vacuum voxels), ``init``, ``analysis`` (the root), ``partition.*`` and
+``refine.*`` (:mod:`pybader_tpu_torch.pipeline`).
 """
 from __future__ import annotations
 

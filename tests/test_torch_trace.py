@@ -420,3 +420,48 @@ def test_a_failed_call_drops_its_grids(tmp_path):
     assert {"density", "atoms_volumes"} <= set(seen)
     assert "bader_volumes" not in seen  # freed at the relabel
     assert "_resident" not in b.__dict__
+
+
+@pytest.mark.parametrize("profile", ["default", "speed"])
+def test_sums_spans_count_their_labels(tmp_path, profile):
+    """A spin call sums the density and the spin once a sums stage, each in
+    its own ``sums.<what>`` span counting the labels it sums over; the
+    spin's upload stays outside its span."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        density, lattice, atoms, info = vasp.read(FIXTURE)
+    density["spin"] = density["charge"] - density["charge"].mean()
+    kwargs = dict(SPEED_CONFIG if profile == "speed" else {},
+                  spin_flag=True, device="cpu", output="dat",
+                  prefix=str(tmp_path) + os.sep)
+    b = _quiet_call(Bader(density, lattice, atoms, info, **kwargs))
+    spans = b.spans
+    sums = [s for s in spans if s.name.startswith("sums.")]
+    stages = [spans[s.parent].name for s in sums]
+    n_atoms, n_max = len(b.atoms), len(b.bader_maxima)
+    want = [("sums.density", n_atoms), ("sums.spin", n_atoms)]
+    if profile == "default":
+        want = [("sums.density", n_max), ("sums.spin", n_max)] + want
+    assert [(s.name, s.counters["labels"]) for s in sums] == want
+    assert all(name.startswith("stage.Integrating") for name in stages)
+    upload = next(s for s in spans if s.name == "upload.spin")
+    assert spans[upload.parent].name.startswith("stage.Integrating")
+    assert b.atoms_spin.shape == (n_atoms,)
+
+
+@pytest.mark.parametrize("vac", [None, 0.2, 1e-12])
+def test_vacuum_mask_span_counts_the_vacuum(tmp_path, vac):
+    with contextlib.redirect_stdout(io.StringIO()):
+        density, lattice, atoms, info = vasp.read(FIXTURE)
+    b = _quiet_call(Bader(density, lattice, atoms, info, vacuum_tol=vac,
+                          device="cpu", output="dat",
+                          prefix=str(tmp_path) + os.sep))
+    masks = [s for s in b.spans if s.name == "vacuum.mask"]
+    if vac is None:
+        assert masks == []
+        return
+    assert len(masks) == 1
+    voxels = int((density["charge"] <= vac).sum())
+    assert masks[0].counters == {"voxels": voxels}
+    assert (voxels > 0) == (vac == 0.2)
+    assert b.spans[masks[0].parent].name == "analysis"
+    assert np.isclose(b.vacuum_volume, voxels * b.voxel_volume)
