@@ -80,7 +80,9 @@ Phases (one line of output each, or a few):
      edge_check against its plain version on the input its last
      edge_check received; a third call under ``torch.profiler``, whose
      ``upload.*`` and ``download.*`` spans must count its trace's memcpy
-     bytes within 1 %
+     bytes within 1 %, and their ``pinned`` counters its memcpys from and
+     to pinned memory (the density's upload and both label grids'
+     downloads, through the pinned ring, ``pinned == bytes``)
  12. variants: ``Bader(...)()`` at 384^3 under PYBADER_TPU_HYBRID_INIT=
      nginit, PYBADER_TPU_QROWS=internal and PYBADER_TPU_BLOCK_WALK=1, then
      under PYBADER_TPU_BLOCK_WALK=1 alone (screened walks); each must launch
@@ -1449,7 +1451,10 @@ def equal_plain(b, density, atoms_cart, tmp, phase):
 def copy_bytes_case(density, atoms_cart, tmp, phase="default"):
     """One default call under ``torch.profiler``: the ``bytes`` of its
     ``upload.*`` and ``download.*`` spans must be its trace's memcpy bytes
-    (HtoD, DtoH) within 1 %."""
+    (HtoD, DtoH) within 1 %, and their ``pinned`` bytes the bytes of its
+    memcpys from and to pinned memory, within 1 %: the density's upload and
+    both label grids' downloads cross whole through the pinned ring
+    (``hostcopy``), their spans reading ``pinned == bytes``."""
     from torch.profiler import ProfilerActivity, profile
 
     b = blob_bader(density, atoms_cart, tmp)
@@ -1462,19 +1467,38 @@ def copy_bytes_case(density, atoms_cart, tmp, phase="default"):
         events = json.load(f)["traceEvents"]
     os.remove(path)
     got = {"upload": 0, "download": 0}
+    pinned = {"upload": 0, "download": 0}
     for ev in events:
         name = ev.get("name", "")
         if ev.get("cat") == "gpu_memcpy" and ("HtoD" in name
                                               or "DtoH" in name):
-            got["upload" if "HtoD" in name else "download"] += int(
-                ev.get("args", {}).get("bytes", 0))
-    counted = {k: sum(s.counters["bytes"] for s in b.spans
+            way = "upload" if "HtoD" in name else "download"
+            n = int(ev.get("args", {}).get("bytes", 0))
+            got[way] += n
+            if "Pinned" in name:
+                pinned[way] += n
+    copies = [s for s in b.spans if s.name.startswith(("upload.",
+                                                       "download."))]
+    counted = {k: sum(s.counters["bytes"] for s in copies
                       if s.name.startswith(k + ".")) for k in got}
-    say(phase, f"bytes copied, spans {counted}, trace {got}")
+    staged = {k: sum(s.counters.get("pinned", 0) for s in copies
+                     if s.name.startswith(k + ".")) for k in got}
+    say(phase, f"bytes copied, spans {counted}, trace {got}; through the "
+        f"pinned ring, spans {staged}, trace's pinned memcpys {pinned}")
     for k, want in got.items():
         if abs(counted[k] - want) > 0.01 * want:
             raise AssertionError(f"the {k} spans count {counted[k]} bytes, "
                                  f"the trace's memcpys {want}")
+        if abs(staged[k] - pinned[k]) > 0.01 * pinned[k] or not pinned[k]:
+            raise AssertionError(f"the {k} spans count {staged[k]} pinned "
+                                 f"bytes, the trace's pinned memcpys "
+                                 f"{pinned[k]}")
+    for name in ("upload.density", "download.bader_volumes",
+                 "download.atoms_volumes"):
+        c = next(s.counters for s in copies if s.name == name)
+        if c.get("pinned") != c["bytes"]:
+            raise AssertionError(f"{name} crossed {c['bytes']} bytes, "
+                                 f"{c.get('pinned')} of them pinned")
 
 
 def default_phase(rho, atoms_cart, tmp):

@@ -30,7 +30,7 @@ import pandas as pd
 import torch
 
 from pybader_tpu_torch import grid as _grid
-from pybader_tpu_torch import io, pipeline, trace
+from pybader_tpu_torch import hostcopy, io, pipeline, trace
 from pybader_tpu_torch.dunders import __config__
 from pybader_tpu_torch.ops import atoms as atoms_ops
 from pybader_tpu_torch.ops import edges as edges_ops
@@ -52,10 +52,13 @@ def _host(grid, what, dtype=None) -> np.ndarray:
     that ``results()``, the pickle and the writers read), in a
     ``download.<what>`` span.  ``dtype``, a numpy dtype, casts a whole
     tensor on its device before the copy, so that only that dtype
-    crosses; a sharded grid is cast on the host after its join."""
+    crosses; a sharded grid is cast on the host after its join.  A whole
+    grid of at least one slot comes down through the pinned ring
+    (:mod:`~pybader_tpu_torch.hostcopy`), counted as the span's
+    ``pinned`` bytes."""
     if isinstance(grid, Sharded):
         nbytes = sum(trace.moved(b, "cpu") for b in grid.blocks)
-        with trace.span("download." + what, bytes=nbytes):
+        with trace.span("download." + what, bytes=nbytes, pinned=0):
             out = grid.join().numpy()
         if dtype is not None:
             with trace.span("host.astype"):
@@ -63,8 +66,11 @@ def _host(grid, what, dtype=None) -> np.ndarray:
         return out
     if dtype is not None:
         grid = grid.to(getattr(torch, np.dtype(dtype).name))
-    with trace.span("download." + what, bytes=trace.moved(grid, "cpu")):
-        return grid.cpu().numpy()
+    nbytes = trace.moved(grid, "cpu")
+    staged = hostcopy.staged(grid, "cpu")
+    with trace.span("download." + what, bytes=nbytes,
+                    pinned=nbytes if staged else 0):
+        return hostcopy.download(grid) if staged else grid.cpu().numpy()
 
 
 @contextmanager
@@ -206,7 +212,9 @@ class Bader:
     ``refine.iteration`` span whose counters ``edges``, ``changed``,
     ``cap_fires`` and ``risky`` record how it converged; each copy is an
     ``upload.<what>`` or ``download.<what>`` span with the ``bytes`` that
-    crossed.
+    crossed and the ``pinned`` bytes of them that crossed through the
+    pinned ring (:mod:`~pybader_tpu_torch.hostcopy`: the grids of at least
+    one slot, between the host and a CUDA device).
 
     Inside a call the grids stay on ``device``.  Each input grid (the
     density; the reference and the spin where they are other arrays) is
@@ -471,15 +479,25 @@ class Bader:
         an ``upload.<what>`` span whose ``bytes`` are those of the tensor
         handed to the copy.  Inside a call only the input grids come here,
         each once (:meth:`_input`); a label grid comes here only in a
-        stage called on its own, cast to ``dtype`` on the host first."""
+        stage called on its own, cast to ``dtype`` on the host first.  A
+        grid of at least one slot goes up through the pinned ring
+        (:mod:`~pybader_tpu_torch.hostcopy`), cast chunk by chunk, and
+        counts its bytes as ``pinned`` too."""
         t = torch.as_tensor(array)
         with trace.span("upload." + what):
-            if t.is_cpu and t.dtype != dtype:
-                # cast on the host, as .to(device, dtype) does: the copy
-                # moves the cast tensor
-                t = t.to(dtype)
-            trace.count("bytes", trace.moved(t, self.device))
-            return t.to(device=self.device, dtype=dtype).contiguous()
+            if hostcopy.staged(t, self.device, dtype):
+                out = hostcopy.upload(t, dtype, self.device)
+                nbytes = pinned = out.numel() * out.element_size()
+            else:
+                if t.is_cpu and t.dtype != dtype:
+                    # cast on the host, as .to(device, dtype) does: the
+                    # copy moves the cast tensor
+                    t = t.to(dtype)
+                nbytes, pinned = trace.moved(t, self.device), 0
+                out = t.to(device=self.device, dtype=dtype).contiguous()
+            trace.count("bytes", nbytes)
+            trace.count("pinned", pinned)
+            return out
 
     def _take(self, what, dtype, array=None):
         """Grid ``what`` on the device: the tensor this call holds, in a

@@ -23,7 +23,9 @@ its stage's span.
 
 Names: ``stage.<name>`` (a stage of ``Bader.__call__``),
 ``upload.<what>`` and ``download.<what>`` (counter ``bytes``, what crosses
-between host and device: :func:`moved`), ``resident.<what>`` (counter
+between host and device: :func:`moved`; in ``Bader``'s, counter ``pinned``,
+the bytes of it that crossed through :mod:`~pybader_tpu_torch.hostcopy`'s
+pinned ring, 0 for a plain copy), ``resident.<what>`` (counter
 ``bytes``, the size of a grid that a stage took from the device in place
 of a copy), ``host.<what>`` (numpy work inside the call), ``sums.<what>``
 (the per-label sums of the ``density`` or the ``spin`` and their two small

@@ -115,7 +115,8 @@ def test_moved_counts_the_bus_in_the_copied_dtype(dtype):
     assert up.dtype == torch.int32 and up.device.type == "meta"
     assert again.dtype == torch.float64
     assert [(s.name, s.counters) for s in spans] == [
-        ("upload.x", {"bytes": 60 * 4}), ("upload.y", {"bytes": 0})]
+        ("upload.x", {"bytes": 60 * 4, "pinned": 0}),
+        ("upload.y", {"bytes": 0, "pinned": 0})]
 
 
 def test_a_span_entered_directly_times_outside_a_recording():
@@ -193,7 +194,12 @@ def test_copies_read_zero_bytes_on_the_cpu(traced):
     assert {"upload.density", "download.bader_volumes",
             "download.atoms_volumes"} <= names
     assert not {"upload.reference", "download.refined"} & names
-    assert all(s.counters == {"bytes": 0} for s in copies)
+    # and none goes through the pinned ring (hostcopy), which takes only
+    # copies between the host and a CUDA device
+    assert all(s.counters == {"bytes": 0, "pinned": 0} for s in copies
+               if s.name.split(".", 1)[1] not in ("first_member", "rank",
+                                                  "max_pos"))
+    assert all(s.counters.get("bytes") == 0 for s in copies)
 
 
 def test_call_spans_are_few_closed_and_rooted(traced):
