@@ -1151,20 +1151,19 @@ def qrows_phase(rho, shape, codes, labels, res):
     rows = neargrid.neargrid_rows_cuda(rho, codes, tg_host, True)
     exact_ms = time_ms(lambda: neargrid.neargrid_walk_cuda(
         rows, starts, shape, cap, known))
-    with environ({"PYBADER_TPU_BLOCK_WALK": "1"}):
-        st = {}
-        # in the rounds' last order, as walk_q hands the lanes on
-        handed, _ = block_walk.block_rounds(
-            qrows, neargrid.init_state(padded, True), shape, stats=st,
-            stop=bits)
-        # the phase as walk_q runs it: its rounds on the bitmap, then the
-        # lanes back in their order
-        phase_ms = time_ms(lambda: block_walk.unsort(
-            *block_walk.block_rounds(
-                qrows, neargrid.init_state(padded, True), shape,
-                stop=bits)))
-        walk_ms = time_ms(lambda: neargrid.walk_screened(
-            qrows, lambda: rows, padded, shape, cap, known))
+    st = {}
+    # in the rounds' last order, as walk_q hands the lanes on
+    handed, _ = block_walk.block_rounds(
+        qrows, neargrid.init_state(padded, True), shape, steps=steps,
+        stats=st, stop=bits)
+    # the phase as walk_q runs it: its rounds on the bitmap, then the
+    # lanes back in their order
+    phase_ms = time_ms(lambda: block_walk.unsort(
+        *block_walk.block_rounds(
+            qrows, neargrid.init_state(padded, True), shape, steps=steps,
+            stop=bits)))
+    walk_ms = time_ms(lambda: neargrid.walk_screened(
+        qrows, lambda: rows, padded, shape, cap, known, block_steps=steps))
     alive = st["block_rounds"][0]
     say("qrows", f"block phase {phase_ms:.3f} ms ({len(alive)} rounds, "
         f"{alive[-1]} of {starts.numel()} lanes left), screened walk with "

@@ -10,9 +10,10 @@ grid is downloaded once, when it is final.  A stage called on its own
 uploads its inputs from the host attributes and downloads its results.
 
 With ``Bader.mesh`` set to a mesh of more than one shard
-(:func:`pybader_tpu_torch.parallel.make_mesh`), the partition, refinement,
-relabel, sums and surface distance run sharded over it, and the mesh's
-devices decide where.
+(:func:`pybader_tpu_torch.parallel.make_mesh`), the same holds with every
+grid sharded over the mesh, whose devices decide where: the vacuum mask,
+partition, refinement, relabel, sums and surface distance run sharded
+(:mod:`pybader_tpu_torch.pipeline` dispatches on the grid it is given).
 """
 from __future__ import annotations
 
@@ -33,12 +34,10 @@ from pybader_tpu_torch import grid as _grid
 from pybader_tpu_torch import hostcopy, io, pipeline, trace
 from pybader_tpu_torch.dunders import __config__
 from pybader_tpu_torch.ops import atoms as atoms_ops
-from pybader_tpu_torch.ops import edges as edges_ops
-from pybader_tpu_torch.ops import reductions
-from pybader_tpu_torch.parallel.analysis import (
-    sharded_charge_volume_sum, sharded_min_surface_distance, sharded_relabel,
-)
-from pybader_tpu_torch.parallel.mesh import Sharded, is_multi
+# unused: the JAX package's interface exports them (test_torch_import)
+from pybader_tpu_torch.ops import edges as edges_ops  # noqa: F401
+from pybader_tpu_torch.ops import reductions  # noqa: F401
+from pybader_tpu_torch.parallel.mesh import Layout, Sharded, is_multi, shard
 from pybader_tpu_torch.utils import dtype_calc
 
 # This package's writer for each file type a reader records, swapped into
@@ -50,22 +49,20 @@ _WRITERS = {"VASP": io.vasp.write, "cube": io.cube.write,
 def _host(grid, what, dtype=None) -> np.ndarray:
     """A result tensor, whole or sharded, as host numpy (the attributes
     that ``results()``, the pickle and the writers read), in a
-    ``download.<what>`` span.  ``dtype``, a numpy dtype, casts a whole
-    tensor on its device before the copy, so that only that dtype
-    crosses; a sharded grid is cast on the host after its join.  A whole
-    grid of at least one slot comes down through the pinned ring
-    (:mod:`~pybader_tpu_torch.hostcopy`), counted as the span's
-    ``pinned`` bytes."""
+    ``download.<what>`` span.  ``dtype``, a numpy dtype, casts on the
+    device (each shard's) before the copy, so that only that dtype
+    crosses.  A whole grid of at least one slot comes down through the
+    pinned ring (:mod:`~pybader_tpu_torch.hostcopy`), counted as the
+    span's ``pinned`` bytes; a sharded one is joined on the host by plain
+    copies."""
+    if dtype is not None:
+        cast = getattr(torch, np.dtype(dtype).name)
+        grid = grid.map(lambda b: b.to(cast)) if isinstance(grid, Sharded) \
+            else grid.to(cast)
     if isinstance(grid, Sharded):
         nbytes = sum(trace.moved(b, "cpu") for b in grid.blocks)
         with trace.span("download." + what, bytes=nbytes, pinned=0):
-            out = grid.join().numpy()
-        if dtype is not None:
-            with trace.span("host.astype"):
-                out = out.astype(dtype)
-        return out
-    if dtype is not None:
-        grid = grid.to(getattr(torch, np.dtype(dtype).name))
+            return grid.join().numpy()
     nbytes = trace.moved(grid, "cpu")
     staged = hostcopy.staged(grid, "cpu")
     with trace.span("download." + what, bytes=nbytes,
@@ -216,16 +213,18 @@ class Bader:
     pinned ring (:mod:`~pybader_tpu_torch.hostcopy`: the grids of at least
     one slot, between the host and a CUDA device).
 
-    Inside a call the grids stay on ``device``.  Each input grid (the
-    density; the reference and the spin where they are other arrays) is
-    uploaded once, at its first use, and the label grids pass from stage
-    to stage as int32 tensors.  The call holds them in ``_resident``, by
-    name, which it clears as it ends and which is never pickled; a stage
-    that takes a held grid records a ``resident.<what>`` span whose
-    ``bytes`` are the tensor's size.  ``bader_volumes`` and
-    ``atoms_volumes`` are downloaded once each, when final, cast on the
-    device to their ``dtype_calc`` dtype.  On a mesh nothing is held, and
-    the stages take host arrays, as a stage called on its own does.
+    Inside a call the grids stay on ``device``, or sharded over a mesh of
+    more than one shard.  Each input grid (the density; the reference and
+    the spin where they are other arrays) is uploaded (or sharded) once,
+    at its first use, and the label grids pass from stage to stage as
+    int32 tensors (or :class:`~pybader_tpu_torch.parallel.mesh.Sharded`
+    grids).  The call holds them in ``_resident``, by name, which it
+    clears as it ends and which is never pickled; a stage that takes a
+    held grid records a ``resident.<what>`` span whose ``bytes`` are the
+    grid's size.  ``bader_volumes`` and ``atoms_volumes`` are downloaded
+    once each, when final, cast on the device to their ``dtype_calc``
+    dtype.  A stage called on its own holds nothing: it uploads the host
+    attributes it takes and downloads what it gives.
     """
 
     device = "cuda"
@@ -499,24 +498,41 @@ class Bader:
             trace.count("pinned", pinned)
             return out
 
+    def _up(self, array, dtype, what):
+        """Host grid ``array`` where the stages run: on a mesh of more than
+        one shard, sharded over it (``parallel.mesh.shard``) in an
+        ``upload.<what>`` span whose ``bytes`` are those that crossed to
+        the shards' devices (0 on a CPU mesh; no pinned ring), else on
+        ``device`` (:meth:`_dev`).  The one place that asks for the mesh:
+        the stages follow the type of the grid they get."""
+        if not is_multi(self.mesh):
+            return self._dev(array, dtype, what)
+        with trace.span("upload." + what):
+            out = shard(Layout(self.mesh, np.shape(array)), array, dtype)
+            trace.count("bytes", sum(trace.moved(b, "cpu")
+                                     for b in out.blocks))
+            trace.count("pinned", 0)
+        return out
+
     def _take(self, what, dtype, array=None):
-        """Grid ``what`` on the device: the tensor this call holds, in a
-        ``resident.<what>`` span whose ``bytes`` are the size of what did
-        not cross, else ``array`` (by default the attribute ``what``)
-        uploaded (:meth:`_dev`)."""
+        """Grid ``what`` where the stages run: the grid this call holds, in
+        a ``resident.<what>`` span whose ``bytes`` are the size of what
+        did not cross, else ``array`` (by default the attribute ``what``)
+        uploaded (:meth:`_up`)."""
         t = None if self._resident is None else self._resident.get(what)
         if t is None:
-            return self._dev(getattr(self, what) if array is None else array,
-                             dtype, what)
-        with trace.span("resident." + what,
-                        bytes=t.numel() * t.element_size()):
+            return self._up(getattr(self, what) if array is None else array,
+                            dtype, what)
+        blocks = t.blocks if isinstance(t, Sharded) else (t,)
+        with trace.span("resident." + what, bytes=sum(
+                b.numel() * b.element_size() for b in blocks)):
             return t
 
     def _input(self, name):
-        """Input grid ``name`` ('density', 'reference' or 'spin') on the
-        device in f64 (:meth:`_take`), held for the rest of a call: a call
-        uploads each array once, and a grid that is the density's array
-        is the density's tensor."""
+        """Input grid ``name`` ('density', 'reference' or 'spin') in f64
+        (:meth:`_take`), held for the rest of a call: a call uploads each
+        array once, and a grid that is the density's array is the
+        density's tensor."""
         if name != 'density' and getattr(self, name) is self.density:
             name = 'density'
         t = self._take(name, torch.float64)
@@ -532,8 +548,8 @@ class Bader:
         return dtype_calc(-max(int(n), 1))
 
     def _give(self, what, labels):
-        """The label grid a stage made for attribute ``what``: held on the
-        device for the rest of a call, else downloaded as the attribute."""
+        """The label grid a stage made for attribute ``what``: held for the
+        rest of a call, else downloaded as the attribute."""
         if self._resident is not None:
             self._resident[what] = labels
         else:
@@ -561,9 +577,8 @@ class Bader:
         self.apply_config(kwargs)
         self._dataframe = None
         self.stage_seconds = {}
-        # the grids this call holds on the device, by name; none on a mesh,
-        # whose stages take host arrays to parallel/
-        self._resident = None if self._multi_mesh() else {}
+        # the grids this call holds where the stages run, by name
+        self._resident = {}
         try:
             self.volumes_init()
             self.bader_calc()
@@ -619,8 +634,9 @@ class Bader:
         """Initialise (or re-mask) the volumes array using vacuum_tol.
 
         Inside a call (``volumes`` None) no host grid is made: the mask
-        stays on the device, held for :meth:`bader_calc` as ``vacuum``
-        (None where ``vacuum_tol`` is None or no voxel is vacuum)."""
+        stays on the device (on a mesh, on each shard's), held for
+        :meth:`bader_calc` as ``vacuum`` (None where ``vacuum_tol`` is None
+        or no voxel is vacuum)."""
         mask = None
         held = volumes is None and self._resident is not None
         if self.vacuum_tol is not None:
@@ -631,9 +647,9 @@ class Bader:
                     else self._input('density')
                 # vacuum_mask counts the vacuum 'voxels' into this span
                 with trace.span("vacuum.mask"):
-                    mask, vc, vv = reductions.vacuum_mask(
+                    mask, vc, vv = pipeline.vacuum_mask(
                         reference, float(vac_tol), density, self.voxel_volume)
-                    if held and not bool(mask.any()):
+                    if held and not vv:
                         mask = None
                 self.vacuum_charge = vc
                 self.vacuum_volume = vv
@@ -661,7 +677,6 @@ class Bader:
     def bader_calc(self):
         """Partition the grid into Bader volumes."""
         weights = tuple(self.distance_weights)
-        multi = self._multi_mesh()
         if self._resident is not None:
             # volumes_init's mask, freed as the partition returns
             vacuum = self._resident.pop('vacuum', None)
@@ -673,16 +688,13 @@ class Bader:
                 if not is_vac.any():
                     is_vac = None
             if is_vac is not None:
-                vacuum = is_vac if multi else self._dev(is_vac, torch.bool,
-                                                        "vacuum")
-        # on a mesh the grids go to the shards' devices, whole from the host
-        reference = self.reference if multi else self._input('reference')
+                vacuum = self._up(is_vac, torch.bool, "vacuum")
+        reference = self._input('reference')
         with _stage("Calculating Bader volumes", record=self.stage_seconds,
                     device=self.device) as tick:
             if self.method == 'ongrid':
                 labels, maxima = pipeline.partition_ongrid(
-                    reference, vacuum, weights, progress=tick,
-                    mesh=self.mesh)
+                    reference, vacuum, weights, progress=tick)
             elif self.method == 'neargrid':
                 # the hybrid's internal refinement hands its continuation
                 # state to refine_volumes, so a following 'changed' refine
@@ -692,7 +704,7 @@ class Bader:
                 # value
                 labels, maxima = pipeline.partition_neargrid(
                     reference, vacuum, weights, self.T_grad,
-                    progress=tick, carry_out=carry, mesh=self.mesh)
+                    progress=tick, carry_out=carry)
                 self._refine_carry = carry if carry else None
             else:
                 raise ValueError(f"Unknown method: {self.method}")
@@ -711,15 +723,11 @@ class Bader:
             )
             self.bader_atoms = _host(atom_idx, "bader_atoms")
             self.bader_distance = _host(dist, "bader_distance")
-            if self._multi_mesh():
-                atoms_vols = sharded_relabel(self.mesh, self.bader_volumes,
-                                             self.bader_atoms)
-            else:
-                atoms_vols = reductions.relabel(
-                    self._take('bader_volumes', torch.int32), atom_idx)
-                if self._resident is not None:
-                    # the atom map takes the basin map's place on the device
-                    self._resident.pop('bader_volumes', None)
+            atoms_vols = pipeline.relabel(
+                self._take('bader_volumes', torch.int32), atom_idx)
+            if self._resident is not None:
+                # the atom map takes the basin map's place on the device
+                self._resident.pop('bader_volumes', None)
             self._give('atoms_volumes', atoms_vols)
 
     def refine_volumes(self, volumes):
@@ -747,17 +755,14 @@ class Bader:
             if not pipeline.refinement_runs(self.refine_method,
                                             self.refine_mode):
                 return  # nothing to upload for a no-op
-            if self._multi_mesh():
-                reference, labels = self.reference, np.asarray(volumes)
-            else:
-                reference = self._input('reference')
-                labels = self._take(what, torch.int32, volumes)
+            reference = self._input('reference')
+            labels = self._take(what, torch.int32, volumes)
             # each iteration's work reaches self.spans as the counters of
             # its 'refine.iteration' span
             refined, _ = pipeline.refine_labels(
                 self.refine_method, self.refine_mode, reference, labels,
                 tuple(self.distance_weights), self.T_grad,
-                progress=tick, carry_in=carry, mesh=self.mesh,
+                progress=tick, carry_in=carry,
             )
             if what in (self._resident or ()):
                 self._resident[what] = refined
@@ -777,25 +782,14 @@ class Bader:
             prefix = 'atoms'
         with _stage(f"Integrating {prefix} charges",
                     record=self.stage_seconds, device=self.device):
-            if self._multi_mesh():
-                labels = getattr(self, f'{prefix}_volumes')
+            labels = self._take(f'{prefix}_volumes', torch.int32)
 
-                def sums(name):
-                    with trace.span("sums." + name, labels=n):
-                        charge, volume = sharded_charge_volume_sum(
-                            self.mesh, getattr(self, name), labels,
-                            self.voxel_volume, n)
-                        return charge.numpy(), volume.numpy()
-            else:
-                labels_dev = self._take(f'{prefix}_volumes', torch.int32)
-
-                def sums(name):
-                    grid = self._input(name)  # its upload outside the span
-                    with trace.span("sums." + name, labels=n):
-                        charge, volume = reductions.charge_volume_sum(
-                            grid, labels_dev, self.voxel_volume, n)
-                        return _host(charge, "charge"), _host(volume,
-                                                              "volume")
+            def sums(name):
+                grid = self._input(name)  # its upload outside the span
+                with trace.span("sums." + name, labels=n):
+                    charge, volume = pipeline.charge_volume_sum(
+                        grid, labels, self.voxel_volume, n)
+                    return _host(charge, "charge"), _host(volume, "volume")
 
             charge, volume = sums('density')
             setattr(self, f'{prefix}_charge', charge)
@@ -809,20 +803,11 @@ class Bader:
         atoms = self.atoms - self.voxel_offset
         with _stage("Calculating min. surface distance",
                     record=self.stage_seconds, device=self.device):
-            if self._multi_mesh():
-                self.atoms_surface_distance = sharded_min_surface_distance(
-                    self.mesh, self.reference, self.atoms_volumes,
-                    self.lattice, atoms, int(self.atoms.shape[0])).numpy()
-                return
             labels = self._take('atoms_volumes', torch.int32)
-            known = edges_ops.edge_find(self._input('reference'), labels)
-            # the lattice stays on the host: the kernel takes it by value
-            dist = atoms_ops.surface_distance_masked(
-                labels, known == -2,
-                torch.as_tensor(self.lattice, dtype=torch.float64),
+            dist = pipeline.surface_distance(
+                self._input('reference'), labels, self.lattice,
                 self._dev(atoms, torch.float64, "atoms"),
-                int(self.atoms.shape[0]),
-            )
+                int(self.atoms.shape[0]))
             self.atoms_surface_distance = _host(dist, "surface_distance")
 
     # -------------------------------------------------------------- results
@@ -867,9 +852,6 @@ class Bader:
 
     def load_config(self, key='DEFAULT'):
         self.apply_config(python_config(key=key))
-
-    def _multi_mesh(self):
-        return is_multi(self.mesh)
 
     def __getstate__(self):
         # a mesh holds live devices: never pickled; the refine carry is

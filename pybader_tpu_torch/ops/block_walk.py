@@ -20,13 +20,12 @@ the kernel reads the rows in place from device memory, where a tile's
 block stays in L2, and walks the lanes of a round on persistent threads
 that take the next lane as theirs freeze.
 
-Env, read at call time:
-    PYBADER_TPU_BLOCK_WALK=1   run the phase (off by default, as in JAX)
-    PYBADER_TPU_BLOCK_STEPS=N  in-kernel steps a round (default 24)
+Whether the phase runs and its steps a round are the caller's arguments:
+:func:`pybader_tpu_torch.pipeline.read_variants` reads them from
+``PYBADER_TPU_BLOCK_WALK`` (off by default, as in JAX) and
+``PYBADER_TPU_BLOCK_STEPS`` (:data:`STEPS` by default).
 """
 from __future__ import annotations
-
-import os
 
 import torch
 
@@ -35,6 +34,7 @@ from pybader_tpu_torch.ops import _cuda, neargrid
 BX, BY, BZ = 16, 16, 128  # block of 32768 voxels
 TILE = 1024               # lanes a tile
 _MIN_LANES = 1 << 17      # below this JAX's global drain tail wins
+STEPS = 24                # in-kernel steps a round (JAX's default)
 
 
 def conforms(shape) -> bool:
@@ -42,11 +42,11 @@ def conforms(shape) -> bool:
     return nx % BX == 0 and ny % BY == 0 and nz % BZ == 0
 
 
-def enabled(shape, n_lanes: int) -> bool:
+def enabled(shape, n_lanes: int, on: bool) -> bool:
     """True where JAX's ``walk_drain`` runs the block phase on q-rows:
-    ``PYBADER_TPU_BLOCK_WALK=1``, whole blocks, at least 2^17 lanes."""
-    return (os.environ.get("PYBADER_TPU_BLOCK_WALK", "0") == "1"
-            and conforms(shape) and n_lanes >= _MIN_LANES)
+    the phase ``on`` (``PYBADER_TPU_BLOCK_WALK=1``), whole blocks, at
+    least 2^17 lanes."""
+    return on and conforms(shape) and n_lanes >= _MIN_LANES
 
 
 def prep_round(state, shape):
@@ -151,7 +151,7 @@ def block_round_cuda(qrows, state, blocks, live, shape, steps: int,
     return out
 
 
-def block_phase(qrows, state, shape, known=None, steps: int = 0,
+def block_phase(qrows, state, shape, known=None, steps: int = STEPS,
                 max_rounds: int = 12, min_alive: int = 32768, stats=None):
     """JAX's ``block_phase``: rounds of :func:`block_round` while they
     retire lanes efficiently.
@@ -168,14 +168,13 @@ def block_phase(qrows, state, shape, known=None, steps: int = 0,
     return state if order is None else unsort(state, order)
 
 
-def block_rounds(qrows, state, shape, known=None, steps: int = 0,
+def block_rounds(qrows, state, shape, known=None, steps: int = STEPS,
                  max_rounds: int = 12, min_alive: int = 32768, stats=None,
                  *, stop=None):
     """:func:`block_phase` without the last step: returns the state in
     the last round's order (the lanes not done before it come first,
     sorted by block) and that order, the lane each position holds (None
     where no round ran).  ``stop``: as :func:`block_round` takes it."""
-    steps = steps or int(os.environ.get("PYBADER_TPU_BLOCK_STEPS", "24"))
     k0 = state[0].numel()
     if k0 == 0 or k0 % TILE:
         return state, None

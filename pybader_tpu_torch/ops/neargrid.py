@@ -42,7 +42,6 @@ q walks are f32 as in JAX, each sum and product rounded on its own.
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
 import torch
@@ -844,17 +843,18 @@ def neargrid_walk_q_cuda(qrows, state, shape, max_steps: int, known=None,
 _FINE_BUCKET_FLOOR = 1 << 22
 
 
-def bucket_size(n: int, min_batch: int = 4096) -> int:
+def bucket_size(n: int, min_batch: int = 4096,
+                fine_buckets: bool = True) -> int:
     """JAX's ``_bucket_size`` ladder: the smallest of 2^k and 3*2^k (and,
-    from 2^22 lanes unless ``PYBADER_TPU_FINE_BUCKETS=0``, 5*2^k and
-    7*2^k) that holds ``max(n, min_batch)``.  Padded lane counts decide
-    the block rounds, so the port keeps the ladder."""
+    from 2^22 lanes with ``fine_buckets``, which
+    ``PYBADER_TPU_FINE_BUCKETS=0`` turns off, 5*2^k and 7*2^k) that holds
+    ``max(n, min_batch)``.  Padded lane counts decide the block rounds, so
+    the port keeps the ladder."""
     n = max(int(n), min_batch)
     bl = (n - 1).bit_length()
     p2 = 1 << bl
     cands = [p2, 3 << max(bl - 2, 0)]
-    if os.environ.get("PYBADER_TPU_FINE_BUCKETS", "1") == "1" \
-            and n >= _FINE_BUCKET_FLOOR:
+    if fine_buckets and n >= _FINE_BUCKET_FLOOR:
         cands += [5 << max(bl - 3, 0), 7 << max(bl - 3, 0)]
     return min(c for c in cands if n <= c)
 
@@ -878,12 +878,14 @@ def pad_starts(starts: torch.Tensor, min_size: int = 4096) -> torch.Tensor:
 
 
 def walk_q(qrows, starts, shape, max_steps: int, known=None,
-           screened: bool = False, stats=None):
+           screened: bool = False, stats=None,
+           block_steps: int | None = None):
     """JAX's ``walk_drain`` on quantised rows.
 
-    The block phase runs first where :func:`block_walk.enabled` says so;
-    its steps do not count, and the q walker then finishes every lane with
-    the full ``max_steps`` budget.  ``starts`` is the padded start list
+    With ``block_steps`` (None: no block phase) the block phase of that
+    many steps a round runs first where :func:`block_walk.enabled` says
+    so; its steps do not count, and the q walker then finishes every lane
+    with the full ``max_steps`` budget.  ``starts`` is the padded start list
     (-1 lanes are born done); its length decides the block rounds.
     ``stats``, if a dict, collects the block rounds (``block_rounds``: one
     list of live-lane counts a round per walk).  returns (pos, done), and
@@ -897,9 +899,10 @@ def walk_q(qrows, starts, shape, max_steps: int, known=None,
         # the kernels' stop set, a bitmap built once for the block rounds
         # and the q walker
         known, stop = None, stop_bitmap_cuda(known)
-    if block_walk.enabled(shape, starts.numel()):
+    if block_walk.enabled(shape, starts.numel(), block_steps is not None):
         state, order = block_walk.block_rounds(qrows, state, shape, known,
-                                               stats=stats, stop=stop)
+                                               block_steps, stats=stats,
+                                               stop=stop)
     # the lanes in the rounds' last order: those still walking come first,
     # by block (each lane walks on its own, so the order changes nothing)
     state = neargrid_walk_q(qrows, state, shape, max_steps, known, stop=stop)
@@ -910,7 +913,8 @@ def walk_q(qrows, starts, shape, max_steps: int, known=None,
 
 
 def walk_screened(qrows, exact_rows, starts, shape, max_steps: int,
-                  known=None, stats=None):
+                  known=None, stats=None, block_steps: int | None = None,
+                  fine_buckets: bool = True):
     """JAX's ``walk_drain_screened``: the screened q walk, then the lanes
     it could not prove exact walked again from their start on the exact
     rows with a fresh cap.
@@ -920,16 +924,18 @@ def walk_screened(qrows, exact_rows, starts, shape, max_steps: int,
     walked again too, as in JAX (with the block phase on, that can change a
     capped lane's end point).  ``exact_rows``: a callable giving the exact
     rows, built only when a lane is risky.  ``stats['risky']`` receives the
-    risky count.  returns (pos, done).
+    risky count.  ``block_steps`` goes to :func:`walk_q`,
+    ``fine_buckets`` to :func:`bucket_size`.  returns (pos, done).
     """
     pos, done, risky = walk_q(qrows, starts, shape, max_steps, known,
-                              screened=True, stats=stats)
+                              screened=True, stats=stats,
+                              block_steps=block_steps)
     n_risky = int(risky.sum())
     if stats is not None:
         stats["risky"] = n_risky
     if n_risky == 0:
         return pos, done
-    size = bucket_size(n_risky, 4096)
+    size = bucket_size(n_risky, 4096, fine_buckets)
     sel = torch.argsort((~risky).to(torch.int8), stable=True)[:size]
     rpos, rdone = neargrid_walk(exact_rows(), starts[sel].contiguous(),
                                 shape, max_steps, known)

@@ -1,5 +1,5 @@
-"""The analysis stages on a device mesh: charge sums, relabel, surface
-distance.
+"""The analysis stages on a device mesh: vacuum mask, charge sums, relabel,
+surface distance.
 
 Port of :mod:`pybader_tpu.parallel.analysis`.  Each shard reduces its own
 voxels with the single-device kernel, and the per-label vectors meet on the
@@ -10,12 +10,33 @@ from __future__ import annotations
 
 import torch
 
+from pybader_tpu_torch import trace
 from pybader_tpu_torch.ops import reductions
 from pybader_tpu_torch.ops.atoms import surface_min_d2
 from pybader_tpu_torch.ops.edges import edge_find
 from pybader_tpu_torch.parallel.mesh import (
     Layout, Mesh, Sharded, crop, halo, shard,
 )
+
+
+def sharded_vacuum_mask(mesh: Mesh, reference, vac_tol: float, density,
+                        voxel_vol: float):
+    """``vacuum_mask`` with the grids sharded over the mesh: each shard's
+    mask (reference <= vac_tol) stays on its device; the shards' f64
+    charge sums are added in shard order and scaled once, as
+    :func:`sharded_charge_volume_sum` does.  The vacuum voxel count goes
+    to the open span's ``voxels`` counter.  returns (mask
+    :class:`Sharded`, vacuum charge, vacuum volume)."""
+    lay = Layout(mesh, tuple(reference.shape))
+    mask = shard(lay, reference, torch.float64).map(lambda b: b <= vac_tol)
+    rho = shard(lay, density, torch.float64)
+    charge = torch.zeros((), dtype=torch.float64)
+    voxels = 0
+    for m, d in zip(mask.blocks, rho.blocks):
+        charge += torch.where(m, d, 0.0).sum().cpu()
+        voxels += int(m.sum())
+    trace.count("voxels", voxels)
+    return mask, float(charge) * voxel_vol, voxels * voxel_vol
 
 
 def sharded_charge_volume_sum(mesh: Mesh, density, labels, voxel_vol: float,

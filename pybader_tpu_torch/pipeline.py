@@ -1,4 +1,4 @@
-"""Partitioning pipelines.
+"""Partitioning pipelines, and the analysis stages on one device or a mesh.
 
 Port of :mod:`pybader_tpu.pipeline`: the ongrid and neargrid partitions and
 neargrid edge refinement, each stage on the device of the input, with the
@@ -11,17 +11,25 @@ TPU scheduling (the drain loop's segments and compaction, the
 candidate-list switch, the roots compaction above 4096 maxima) gives the
 same labels as the formulation ported here.
 
+:func:`read_variants` reads these (and ``PYBADER_TPU_FULL_TRAJECTORIES``,
+``_INTERNAL_ITERS``, ``_QROWS_CPU``, ``_FINE_BUCKETS``) once per call of
+:func:`partition_neargrid` or :func:`refine_labels`; the functions below
+take the :class:`Variants` as arguments.
+
 Row formats.  Where the JAX package walks screened quantised rows without
-the block phase (its default), the port walks the exact rows: the screen
-makes the two bit-identical.  The quantised-row walkers run only where
-their result differs from the exact walk's: the unscreened modes
-(``QROWS=internal|all``, unscreened walks on CPU tensors only with
-``PYBADER_TPU_QROWS_CPU=1``, as in JAX), and any walk on which the block
-phase runs, since its steps do not count toward the step cap.
+the block phase (its default), the port walks the exact rows, unpadded:
+the screen makes the two bit-identical, and only the block phase reads the
+padding.  The quantised-row walkers run only where their result differs
+from the exact walk's: the unscreened modes (``QROWS=internal|all``,
+unscreened walks on CPU tensors only with ``PYBADER_TPU_QROWS_CPU=1``, as
+in JAX), and any walk on which the block phase runs, since its steps do
+not count toward the step cap.
 
 With ``mesh=`` (a :class:`~pybader_tpu_torch.parallel.mesh.Mesh` of more
-than one shard) the three entry points run sharded over a device mesh, with
-the JAX package's rules for it (:mod:`pybader_tpu_torch.parallel`).
+than one shard), or given :class:`~pybader_tpu_torch.parallel.mesh.Sharded`
+grids, the entry points run sharded over the mesh, with the JAX package's
+rules for it (:mod:`pybader_tpu_torch.parallel`); so do the analysis
+stages at the end of this module, on ``Sharded`` grids.
 
 Not ported (ROADMAP Queue 1): ``PYBADER_TPU_F32_ROWS``, which the JAX
 package ignores on the CPU and so has no reference there, and the drain
@@ -32,18 +40,20 @@ from __future__ import annotations
 
 import os
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from pybader_tpu_torch import trace
 from pybader_tpu_torch.ops import block_walk, neargrid, reductions
+from pybader_tpu_torch.ops.atoms import surface_distance_masked
 from pybader_tpu_torch.ops.edges import edge_check, edge_find
 from pybader_tpu_torch.ops.pointer import labels_flood, resolve_roots
 from pybader_tpu_torch.ops.stencil import (
     neargrid_init_codes, ongrid_step_codes, parent_from_step_codes,
 )
-from pybader_tpu_torch.parallel import sharded
+from pybader_tpu_torch.parallel import analysis, sharded
 from pybader_tpu_torch.parallel.chase import sharded_chase
 from pybader_tpu_torch.parallel.mesh import (
     Sharded, is_multi, layout_of, put, shard, take,
@@ -67,6 +77,60 @@ _WALK_BATCH = 1 << 21
 # Largest lane bucket a refinement q walk takes at once (JAX
 # _WALK_CHUNK_CAP); larger buckets walk in chunks of this size.
 _WALK_CHUNK_CAP = 1 << 23
+
+
+@dataclass(frozen=True)
+class Variants:
+    """The walk variants of one entry call; the defaults are the main
+    path's.  Row formats are 'exact', 'q' (unscreened) or 'qs' (screened),
+    before :func:`_row_format`'s rules."""
+
+    full_trajectories: bool | None = None  # the partition's; None: by size
+    hybrid_init: str = "ongrid"  # or 'nginit'
+    internal_iters: int | None = None  # None: hybrid_internal_budget
+    internal_cap: int | None = None  # None: neargrid.refine_cap
+    internal_rows: str = "qs"  # the hybrid's internal walks
+    profile_rows: str = "qs"  # a refinement's own walks
+    qrows_cpu: bool = False  # unscreened walks of CPU tensors too
+    block_steps: int | None = None  # the block phase's; None: no phase
+    fine_buckets: bool = True  # neargrid.bucket_size's 5 and 7 * 2^k
+
+
+def read_variants() -> Variants:
+    """The variants as the environment sets them, with the JAX package's
+    names and values (``PYBADER_TPU_INTERNAL_CAP=0``: no cap)."""
+    env = os.environ.get
+    full = env("PYBADER_TPU_FULL_TRAJECTORIES")
+    iters = env("PYBADER_TPU_INTERNAL_ITERS")
+    qrows = env("PYBADER_TPU_QROWS", "screened")
+    return Variants(
+        full_trajectories=None if full is None
+        else full.lower() not in ("0", "off", "false"),
+        hybrid_init=env("PYBADER_TPU_HYBRID_INIT", "ongrid"),
+        internal_iters=None if iters is None else int(iters),
+        internal_cap=int(env("PYBADER_TPU_INTERNAL_CAP", "0")) or None,
+        internal_rows={"off": "exact", "internal": "q",
+                       "all": "q"}.get(qrows, "qs"),
+        profile_rows={"screened": "qs", "all": "q"}.get(qrows, "exact"),
+        qrows_cpu=env("PYBADER_TPU_QROWS_CPU") == "1",
+        block_steps=int(env("PYBADER_TPU_BLOCK_STEPS",
+                            str(block_walk.STEPS)))
+        if env("PYBADER_TPU_BLOCK_WALK", "0") == "1" else None,
+        fine_buckets=env("PYBADER_TPU_FINE_BUCKETS", "1") == "1",
+    )
+
+
+def _mesh_of(mesh, *grids):
+    """The mesh an entry call runs sharded over: ``mesh`` where it has more
+    than one shard, else the mesh of the first
+    :class:`~pybader_tpu_torch.parallel.mesh.Sharded` grid, else None (one
+    device)."""
+    if is_multi(mesh):
+        return mesh
+    for g in grids:
+        if isinstance(g, Sharded):
+            return g.layout.mesh
+    return None
 
 
 def step_codes(reference: torch.Tensor, vacuum: torch.Tensor | None,
@@ -127,13 +191,15 @@ def partition_ongrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
             more than one shard: the partition runs sharded over it
             (:func:`~pybader_tpu_torch.parallel.sharded_partition`; its
             devices decide where, and the labels come back sharded).  A
-            one-shard mesh takes the single-device path.
+            one-shard mesh takes the single-device path; a ``Sharded``
+            ``reference`` brings its own mesh.
     returns:
         (labels int32 tensor [-1 vacuum, 0..M-1 basins],
          maxima (M, 3) int64 numpy voxel indices in discovery order)
     """
+    mesh = _mesh_of(mesh, reference)
     with trace.span("partition.init"):
-        if is_multi(mesh):
+        if mesh is not None:
             return sharded.sharded_partition(mesh, reference, vacuum,
                                              weights)
         return _partition_codes(step_codes(reference, vacuum, weights),
@@ -221,8 +287,8 @@ def partition_neargrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
     ``carry_out`` so that a following ``refine_labels(...,
     carry_in=carry_out)`` chains on.
 
-    Environment, read at call time: ``PYBADER_TPU_FULL_TRAJECTORIES``
-    (0/off/false or anything else) picks the path when
+    The variants (:func:`read_variants`, once a call):
+    ``PYBADER_TPU_FULL_TRAJECTORIES`` picks the path when
     ``full_trajectories`` is None; ``PYBADER_TPU_INTERNAL_ITERS`` overrides
     the hybrid's internal depth (-1: to convergence);
     ``PYBADER_TPU_INTERNAL_CAP`` caps its internal walks' steps;
@@ -233,8 +299,9 @@ def partition_neargrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
     trajectories) or the internal refinement's ``iterations`` (hybrid),
     and ``block_rounds`` where the block phase ran.
 
-    On a ``mesh`` of more than one shard the hybrid always runs, from the
-    mesh's ongrid partition, whatever ``full_trajectories``,
+    On a ``mesh`` of more than one shard (or for a ``Sharded``
+    ``reference``) the hybrid always runs, from the mesh's ongrid
+    partition, whatever ``full_trajectories``,
     ``PYBADER_TPU_FULL_TRAJECTORIES`` and ``PYBADER_TPU_HYBRID_INIT`` say;
     its internal refinement walks exact rows on the mesh and hands on no
     carry (:func:`refine_labels`).  The labels come back sharded.
@@ -242,54 +309,40 @@ def partition_neargrid(reference: torch.Tensor, vacuum: torch.Tensor | None,
     returns (labels int32 tensor, maxima (M, 3) int64 numpy)
     """
     shape = tuple(reference.shape)
-    env = os.environ.get
-    if is_multi(mesh):
-        with trace.span("partition.init"):
-            labels, maxima = sharded.sharded_partition(mesh, reference,
-                                                       vacuum, weights)
+    opts = read_variants()
+    mesh = _mesh_of(mesh, reference)
+    if mesh is None:
+        if full_trajectories is None:
+            full_trajectories = opts.full_trajectories
+        if full_trajectories is None:
+            full_trajectories = reference.numel() <= \
+                _NEARGRID_HYBRID_THRESHOLD
+        if full_trajectories:
+            with trace.span("partition.walk"):
+                return _partition_walk(reference, vacuum, weights, t_grad,
+                                       shape, progress, stats, opts)
+    if mesh is None and opts.hybrid_init == "nginit":
+        labels, maxima = partition_nginit(reference, vacuum, weights,
+                                          t_grad, progress)
+        internal = _NGINIT_HYBRID_REFINE
+    else:
+        labels, maxima = partition_ongrid(reference, vacuum, weights,
+                                          progress, mesh=mesh)
         internal = hybrid_internal_budget(shape)
-        if env("PYBADER_TPU_INTERNAL_ITERS") is not None:
-            internal = ("changed", int(env("PYBADER_TPU_INTERNAL_ITERS")))
-        labels, _ = refine_labels(
-            "neargrid", internal, reference, labels, weights, t_grad,
-            verbose=False, progress=progress, stats=stats, mesh=mesh,
-            step_cap=int(env("PYBADER_TPU_INTERNAL_CAP", "0")) or None)
-        return labels, maxima
-    n = reference.numel()
-    if full_trajectories is None:
-        if env("PYBADER_TPU_FULL_TRAJECTORIES") is not None:
-            full_trajectories = env("PYBADER_TPU_FULL_TRAJECTORIES").lower() \
-                not in ("0", "off", "false")
-        else:
-            full_trajectories = n <= _NEARGRID_HYBRID_THRESHOLD
-    if not full_trajectories:
-        if env("PYBADER_TPU_HYBRID_INIT", "ongrid") == "nginit":
-            labels, maxima = partition_nginit(reference, vacuum, weights,
-                                              t_grad, progress)
-            internal = _NGINIT_HYBRID_REFINE
-        else:
-            labels, maxima = partition_ongrid(reference, vacuum, weights,
-                                              progress)
-            internal = hybrid_internal_budget(shape)
-        if env("PYBADER_TPU_INTERNAL_ITERS") is not None:
-            internal = ("changed", int(env("PYBADER_TPU_INTERNAL_ITERS")))
-        quantized = {"off": False, "internal": "q", "all": "q"}.get(
-            env("PYBADER_TPU_QROWS", "screened"), "qs")
-        step_cap = int(env("PYBADER_TPU_INTERNAL_CAP", "0")) or None
-        # refinement moves edge voxels between the existing basins: the
-        # numbering and the maxima stay those of the init
-        labels, _ = refine_labels(
-            "neargrid", internal, reference, labels, weights, t_grad,
-            verbose=False, progress=progress, carry_out=carry_out,
-            stats=stats, quantized=quantized, step_cap=step_cap)
-        return labels, maxima
-    with trace.span("partition.walk"):
-        return _partition_walk(reference, vacuum, weights, t_grad, shape,
-                               progress, stats)
+    if opts.internal_iters is not None:
+        internal = ("changed", opts.internal_iters)
+    # refinement moves edge voxels between the existing basins: the
+    # numbering and the maxima stay those of the init
+    labels, _ = refine_labels(
+        "neargrid", internal, reference, labels, weights, t_grad,
+        verbose=False, progress=progress, carry_out=carry_out,
+        stats=stats, quantized=opts.internal_rows,
+        step_cap=opts.internal_cap, mesh=mesh, variants=opts)
+    return labels, maxima
 
 
 def _partition_walk(reference, vacuum, weights, t_grad, shape, progress,
-                    stats):
+                    stats, opts):
     """Every non-vacuum voxel's full trajectory (the neargrid partition
     below the hybrid's threshold)."""
     n = reference.numel()
@@ -299,11 +352,12 @@ def _partition_walk(reference, vacuum, weights, t_grad, shape, progress,
         progress(f"walking {n} trajectories")
     wstat = {} if stats is not None else None
     n_starts = n if vacuum is None else int((~vacuum).sum())
-    if os.environ.get("PYBADER_TPU_QROWS", "screened") != "off" and \
-            block_walk.enabled(shape, neargrid.padded_size(
-                min(n_starts, _WALK_BATCH))):
+    # screened q walks unless PYBADER_TPU_QROWS=off
+    if opts.internal_rows != "exact" and block_walk.enabled(
+            shape, neargrid.padded_size(min(n_starts, _WALK_BATCH)),
+            opts.block_steps is not None):
         pos, done = _walk_all_screened(reference, vacuum, bk, t_grad, shape,
-                                       cap, wstat)
+                                       cap, wstat, opts)
     else:
         with trace.span("partition.rows"):
             rows = neargrid.neargrid_rows(reference, bk, t_grad,
@@ -322,7 +376,8 @@ def _partition_walk(reference, vacuum, weights, t_grad, shape, progress,
     return label_from_roots(pos.reshape(shape), vacuum)
 
 
-def _walk_all_screened(reference, vacuum, bk, t_grad, shape, cap, stats):
+def _walk_all_screened(reference, vacuum, bk, t_grad, shape, cap, stats,
+                       opts):
     """Every non-vacuum voxel's screened q walk with the block phase, in
     JAX's batches (``pad_starts`` of 2^21 starts); vacuum voxels end on
     themselves.  returns (pos, done) over the whole grid."""
@@ -340,7 +395,8 @@ def _walk_all_screened(reference, vacuum, bk, t_grad, shape, cap, stats):
     for chunk in starts_all.split(_WALK_BATCH):
         p, d = neargrid.walk_screened(
             qrows, exact, neargrid.pad_starts(chunk), shape, cap,
-            stats=stats)
+            stats=stats, block_steps=opts.block_steps,
+            fine_buckets=opts.fine_buckets)
         idx = chunk.long()
         pos[idx] = p[:chunk.numel()]
         done[idx] = d[:chunk.numel()]
@@ -364,21 +420,22 @@ class _Lazy:
         return self.value
 
 
-def _row_format(quantized, reference) -> str:
+def _row_format(quantized, reference, opts: Variants) -> str:
     """The walk-row format of a refinement: 'exact', 'q' (unscreened
-    quantised rows) or 'qs' (screened).  ``quantized=None`` reads
-    ``PYBADER_TPU_QROWS`` (screened -> 'qs', all -> 'q', else exact);
-    True means 'q'.  Unscreened walks of CPU tensors need
-    ``PYBADER_TPU_QROWS_CPU=1``, as JAX's CPU backend does."""
-    if quantized is None:
-        quantized = {"screened": "qs", "all": "q"}.get(
-            os.environ.get("PYBADER_TPU_QROWS", "screened"), False)
-    if quantized is True:
-        quantized = "q"
-    if quantized == "q" and reference.device.type == "cpu" and \
-            os.environ.get("PYBADER_TPU_QROWS_CPU") != "1":
-        quantized = False
-    return quantized or "exact"
+    quantised rows) or 'qs' (screened).  ``quantized=None`` takes
+    ``opts.profile_rows``; True means 'q', False 'exact'.  Unscreened
+    walks of CPU tensors need ``opts.qrows_cpu``, as JAX's CPU backend
+    does.  Without the block phase a screened walk is the exact walk."""
+    kind = opts.profile_rows if quantized is None else quantized
+    if kind is True:
+        kind = "q"
+    kind = kind or "exact"
+    if kind == "q" and reference.device.type == "cpu" and \
+            not opts.qrows_cpu:
+        return "exact"
+    if kind == "qs" and opts.block_steps is None:
+        return "exact"
+    return kind
 
 
 def refinement_runs(method: str, refine_mode) -> bool:
@@ -391,7 +448,7 @@ def refinement_runs(method: str, refine_mode) -> bool:
 def refine_labels(method: str, refine_mode, reference, labels, weights,
                   t_grad, verbose: bool = True, progress=None, stats=None,
                   carry_in=None, carry_out=None, quantized=None,
-                  step_cap: int | None = None, mesh=None):
+                  step_cap: int | None = None, mesh=None, variants=None):
     """Iterative neargrid edge refinement.
 
     Iteration 1 walks every edge voxel (``edge_find``); later iterations
@@ -401,7 +458,9 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
     Unknown methods and ``iters == 0`` return the labels untouched.
 
     ``quantized`` picks the walk rows (:func:`_row_format`): 'qs', 'q',
-    False, or None for ``PYBADER_TPU_QROWS``.  Quantised walks take JAX's
+    'exact', True, False, or None for ``PYBADER_TPU_QROWS``.  ``variants``
+    (:class:`Variants`) are the caller's, else :func:`read_variants`'.
+    Exact walks take the starts as they are; quantised walks take JAX's
     padded buckets (:func:`neargrid.bucket_size`, chunks of 2^23 lanes),
     since the padded lane count decides the block rounds.  ``step_cap``
     replaces the refinement cap (:func:`neargrid.refine_cap`); lanes past
@@ -432,9 +491,9 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
     a host array (numpy or a CPU tensor: the rows kernel takes it by
     value).  returns (labels, total_changed).
 
-    On a ``mesh`` of more than one shard the grids stay sharded
-    (:func:`_refine_mesh`): exact rows only, no carry, no ``quantized``;
-    ``reference`` and ``labels`` may be whole or
+    On a ``mesh`` of more than one shard, or for ``Sharded`` grids, the
+    grids stay sharded (:func:`_refine_mesh`): exact rows only, no carry,
+    no ``quantized``; ``reference`` and ``labels`` may be whole or
     :class:`~pybader_tpu_torch.parallel.mesh.Sharded`, and the labels come
     back sharded.
     """
@@ -442,7 +501,8 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
         return labels, 0
     mode, iters = tuple(refine_mode)
     max_iters = np.inf if iters < 0 else int(iters)
-    if is_multi(mesh):
+    mesh = _mesh_of(mesh, labels, reference)
+    if mesh is not None:
         return _refine_mesh(mesh, str(mode).lower(), max_iters, reference,
                             labels, weights, t_grad, verbose, progress, stats,
                             step_cap)
@@ -451,7 +511,8 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
     if carry_in is not None and carry_in.get("converged"):
         return labels, 0
     shape = tuple(reference.shape)
-    kind = _row_format(quantized, reference)
+    opts = read_variants() if variants is None else variants
+    kind = _row_format(quantized, reference, opts)
     labels = labels.to(torch.int32).clone()  # updated in place below
     if carry_in is not None and "known" in carry_in:
         bk, is_max, known = carry_in["bk"], carry_in["is_max"], \
@@ -498,7 +559,7 @@ def refine_labels(method: str, refine_mode, reference, labels, weights,
                                                    cap, known)
             else:
                 pos, done = _walk_padded(kind, quant, exact, starts, shape,
-                                         cap, known, wstat)
+                                         cap, known, wstat, opts)
             n_capped = int((~done).sum())
             if n_capped:
                 # step-cap stragglers resolve through their ongrid root
@@ -632,26 +693,32 @@ def _refine_mesh(mesh, mode, max_iters, reference, labels, weights, t_grad,
     return labels, total_changed
 
 
-def _walk_padded(kind, quant, exact, starts, shape, cap, known, stats):
-    """One refinement walk in JAX's padded buckets and chunks.
+def _walk_padded(kind, quant, exact, starts, shape, cap, known, stats,
+                 opts):
+    """One quantised refinement walk in JAX's padded buckets and chunks.
 
-    'q' walks the unscreened q-rows; 'qs' walks a chunk screened (risky
-    lanes again on the exact rows) where the block phase runs on it, and
-    on the exact rows otherwise, which gives the same result.  ``quant``
-    and ``exact`` build the rows on first use.  ``stats`` sums the risky
-    counts and collects the block rounds.  returns (pos, done) of the
-    unpadded starts."""
+    'q' walks the unscreened q-rows; 'qs' (with the block phase on) walks
+    a chunk screened (risky lanes again on the exact rows) where the block
+    phase runs on it, and on the exact rows otherwise, which gives the
+    same result.  ``quant`` and ``exact`` build the rows on first use.
+    ``stats`` sums the risky counts and collects the block rounds.
+    returns (pos, done) of the unpadded starts."""
     n_edges = starts.numel()
-    padded = neargrid.pad_to(starts, neargrid.bucket_size(n_edges))
+    padded = neargrid.pad_to(starts, neargrid.bucket_size(
+        n_edges, fine_buckets=opts.fine_buckets))
     parts = []
     for chunk in padded.split(_WALK_CHUNK_CAP):
         wstat = {}
         if kind == "q":
             parts.append(neargrid.walk_q(quant(), chunk, shape, cap, known,
-                                         stats=wstat))
-        elif block_walk.enabled(shape, chunk.numel()):
-            parts.append(neargrid.walk_screened(quant(), exact, chunk, shape,
-                                                cap, known, stats=wstat))
+                                         stats=wstat,
+                                         block_steps=opts.block_steps))
+        elif block_walk.enabled(shape, chunk.numel(),
+                                opts.block_steps is not None):
+            parts.append(neargrid.walk_screened(
+                quant(), exact, chunk, shape, cap, known, stats=wstat,
+                block_steps=opts.block_steps,
+                fine_buckets=opts.fine_buckets))
         else:
             parts.append(neargrid.neargrid_walk(exact(), chunk, shape, cap,
                                                 known))
@@ -676,3 +743,44 @@ def _apply_walk_results(labels, known, starts, pos) -> int:
     lab[s] = new
     kn[s] = torch.where(changed, -2, -1).to(torch.int8)
     return int(changed.sum())
+
+
+# ------------------------------------------------------ analysis stages
+def vacuum_mask(reference, vac_tol: float, density, voxel_vol: float):
+    """:func:`reductions.vacuum_mask`, per shard for a ``Sharded``
+    ``reference`` (the mask stays sharded)."""
+    if isinstance(reference, Sharded):
+        return analysis.sharded_vacuum_mask(reference.layout.mesh, reference,
+                                            vac_tol, density, voxel_vol)
+    return reductions.vacuum_mask(reference, vac_tol, density, voxel_vol)
+
+
+def relabel(labels, swap):
+    """:func:`reductions.relabel`, per shard for ``Sharded`` labels."""
+    if isinstance(labels, Sharded):
+        return analysis.sharded_relabel(labels.layout.mesh, labels, swap)
+    return reductions.relabel(labels, swap)
+
+
+def charge_volume_sum(density, labels, voxel_vol: float, num_segments: int):
+    """:func:`reductions.charge_volume_sum`; for ``Sharded`` labels the
+    shards' sums, added on the host."""
+    if isinstance(labels, Sharded):
+        return analysis.sharded_charge_volume_sum(
+            labels.layout.mesh, density, labels, voxel_vol, num_segments)
+    return reductions.charge_volume_sum(density, labels, voxel_vol,
+                                        num_segments)
+
+
+def surface_distance(reference, labels, lattice, atoms, num_atoms: int):
+    """Each atom's distance to its volume's surface (``edge_find``, then
+    ``surface_distance_masked``; for ``Sharded`` labels per shard, met on
+    the host).  ``lattice`` stays on the host: the kernel takes it by
+    value; ``atoms`` are the positions less the voxel offset."""
+    if isinstance(labels, Sharded):
+        return analysis.sharded_min_surface_distance(
+            labels.layout.mesh, reference, labels, lattice, atoms, num_atoms)
+    known = edge_find(reference, labels)
+    return surface_distance_masked(
+        labels, known == -2, torch.as_tensor(lattice, dtype=torch.float64),
+        atoms, num_atoms)

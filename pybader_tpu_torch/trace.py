@@ -23,11 +23,15 @@ its stage's span.
 
 Names: ``stage.<name>`` (a stage of ``Bader.__call__``),
 ``upload.<what>`` and ``download.<what>`` (counter ``bytes``, what crosses
-between host and device: :func:`moved`; in ``Bader``'s, counter ``pinned``,
-the bytes of it that crossed through :mod:`~pybader_tpu_torch.hostcopy`'s
-pinned ring, 0 for a plain copy), ``resident.<what>`` (counter
-``bytes``, the size of a grid that a stage took from the device in place
-of a copy), ``host.<what>`` (numpy work inside the call), ``sums.<what>``
+between host and device: :func:`moved`, summed over the shards on a mesh;
+in ``Bader``'s, counter ``pinned``, the bytes of it that crossed through
+:mod:`~pybader_tpu_torch.hostcopy`'s pinned ring, 0 for a plain copy and
+on a mesh), ``resident.<what>`` (counter ``bytes``, the size of a grid,
+whole or sharded, that a stage took from those the call holds in place of
+a copy), ``host.<what>`` (numpy work: in a call, on one device or a mesh,
+only ``results``, ``write``, ``pickle`` and ``export``;
+``vacuum_scan``, ``vacuum_where`` and ``copyto`` only in stages called on
+their own, as ``bader-read`` calls them), ``sums.<what>``
 (the per-label sums of the ``density`` or the ``spin`` and their two small
 downloads; counter ``labels``, the basins or atoms summed over),
 ``vacuum.mask`` (the vacuum mask and its reads; counter ``voxels``, the

@@ -8,8 +8,9 @@ every state word (f32 ``dr`` and ``err`` bit for bit) and the round count
 must be identical.  The field is the conforming 32x32x128 grid of
 ``tests/test_block_walk.py``, and a 16x16x128 grid of one block (every
 periodic wrap keeps a lane inside its block); the JAX module reads its
-switches at import, so the tests set ``_ENABLED`` and ``_MIN_LANES`` on it
-and the environment and ``_MIN_LANES`` for the port.
+switches at import, so the tests set ``_ENABLED`` and ``_MIN_LANES`` on it;
+the port's walks take the phase as an argument (``block_steps``), and the
+tests set ``_MIN_LANES`` on it.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -77,7 +78,6 @@ def grid_fixture(shape, seed):
 def enable(monkeypatch, min_lanes=256):
     monkeypatch.setattr(jbw, "_ENABLED", True)
     monkeypatch.setattr(jbw, "_MIN_LANES", min_lanes)
-    monkeypatch.setenv("PYBADER_TPU_BLOCK_WALK", "1")
     monkeypatch.setattr(tbw, "_MIN_LANES", min_lanes)
 
 
@@ -161,20 +161,19 @@ def test_phase_handed_to_capped_q_walker_matches_jax(monkeypatch, shape,
                           max_steps=3, fields=q_baked, screened=screened)
     stats = {}
     got = tng.walk_q(q, torch.from_numpy(padded), shape, 3, known,
-                     screened=screened, stats=stats)
+                     screened=screened, stats=stats, block_steps=tbw.STEPS)
     assert_state_equal(want, got)
     assert stats["block_rounds"] and (~got[1]).sum() > 0
 
 
 @pytest.mark.parametrize("steps", [1, 5])
-def test_block_steps_env_matches_jax(monkeypatch, steps):
+def test_block_steps_env_matches_jax(steps):
     q_baked, q, known, padded, _ = fixture(1)
-    monkeypatch.setenv("PYBADER_TPU_BLOCK_STEPS", str(steps))
     state = jng._init_state(jnp.asarray(padded), jnp.float32, screened=True)
     want, _ = jbw.block_phase(state, q_baked, SHAPE, screened=True,
                               steps=steps, max_rounds=3, min_alive=64)
     got = tbw.block_phase(q, tng.init_state(torch.from_numpy(padded), True),
-                          SHAPE, known, max_rounds=3, min_alive=64)
+                          SHAPE, known, steps, max_rounds=3, min_alive=64)
     assert_state_equal(want, got)
 
 
@@ -187,7 +186,7 @@ def test_walk_with_phase_equals_walk_without(monkeypatch, screened):
     enable(monkeypatch)
     stats = {}
     on = tng.walk_q(q, starts, SHAPE, 2000, known, screened=screened,
-                    stats=stats)
+                    stats=stats, block_steps=tbw.STEPS)
     assert stats["block_rounds"]
     for a, b in zip(off, on):
         assert torch.equal(a, b)
@@ -203,9 +202,8 @@ def test_capped_walk_with_phase_matches_jax(monkeypatch, screened):
                           jnp.asarray(tg), SHAPE, strict_grad=True,
                           max_steps=2, fields=q_baked, screened=screened)
     got = tng.walk_q(q, torch.from_numpy(padded), SHAPE, 2, known,
-                     screened=screened)
+                     screened=screened, block_steps=tbw.STEPS)
     assert_state_equal(want, got)
-    monkeypatch.setenv("PYBADER_TPU_BLOCK_WALK", "0")
     plain = tng.walk_q(q, torch.from_numpy(padded), SHAPE, 2, known,
                        screened=screened)
     assert (~got[1]).sum() > 0
@@ -214,11 +212,10 @@ def test_capped_walk_with_phase_matches_jax(monkeypatch, screened):
 
 def test_phase_off_below_min_lanes_or_off_grid(monkeypatch):
     enable(monkeypatch, min_lanes=1 << 17)
-    assert tbw.enabled(SHAPE, 1 << 17)
-    assert not tbw.enabled(SHAPE, (1 << 17) - 1)
-    assert not tbw.enabled((24, 20, 18), 1 << 20)
-    monkeypatch.setenv("PYBADER_TPU_BLOCK_WALK", "0")
-    assert not tbw.enabled(SHAPE, 1 << 20)
+    assert tbw.enabled(SHAPE, 1 << 17, True)
+    assert not tbw.enabled(SHAPE, (1 << 17) - 1, True)
+    assert not tbw.enabled((24, 20, 18), 1 << 20, True)
+    assert not tbw.enabled(SHAPE, 1 << 20, False)
     for shape in [(32, 32, 128), (24, 20, 18), (16, 48, 256)]:
         assert tbw.conforms(shape) == jbw.conforms(shape)
 

@@ -547,6 +547,80 @@ def test_bader_mesh_matches_jax_mesh_bader(tmp_path, monkeypatch, n, config):
             (tmp_path / "jax" / name).read_text()
 
 
+@pytest.mark.parametrize("config", [{}, SPEED_VACUUM_SPIN],
+                         ids=["default", "speed-vacuum-spin"])
+def test_bader_mesh_call_holds_its_grids_sharded(tmp_path, monkeypatch,
+                                                 config):
+    """A ``Bader`` call on a 4-shard mesh (the speed profile with a vacuum
+    and a spin grid) shards each input array from the host once, every
+    later ``shard`` of it passing the held grid through; it records no
+    ``host.astype``, ``host.copyto`` or ``host.vacuum_scan`` span, and
+    joins each result label grid to the host once, when final, in its
+    ``dtype_calc`` dtype."""
+    import sys
+
+    from pybader_tpu_torch import trace
+    from pybader_tpu_torch.io import vasp
+
+    density, lattice, atoms, info = vasp.read(FIXTURE)
+    if config:
+        density["spin"] = density["charge"] - density["charge"].mean()
+    b = Bader(density, lattice, atoms, info, device="cpu", **config)
+    b.mesh = make_mesh(4, device="cpu")
+    real_shard, real_join = tmesh.shard, tmesh.Sharded.join
+    whole, joined = [], []
+
+    def shard(layout, full, dtype=None):
+        if not isinstance(full, tmesh.Sharded):
+            whole.append(full)
+        return real_shard(layout, full, dtype)
+
+    def join(grid, device="cpu"):
+        joined.append(grid.dtype)
+        return real_join(grid, device)
+
+    for mod in list(sys.modules.values()):
+        if mod is not None and mod.__name__.startswith("pybader_tpu_torch") \
+                and getattr(mod, "shard", None) is real_shard:
+            monkeypatch.setattr(mod, "shard", shard)
+    monkeypatch.setattr(tmesh.Sharded, "join", join)
+    # copies count what crosses to a card, as a CUDA mesh's would
+    monkeypatch.setattr(trace, "moved",
+                        lambda t, device: t.numel() * t.element_size())
+    monkeypatch.chdir(tmp_path)
+    b(output="dat")
+    inputs = [b.density] + ([b.spin] if config else [])
+    assert len(whole) == len(inputs)
+    assert all(any(w is x for x in inputs) for w in whole)
+    names = [s.name for s in b.spans]
+    assert not {"host.astype", "host.copyto", "host.vacuum_scan",
+                "host.vacuum_where", "upload.vacuum",
+                "download.vacuum_mask", "download.refined"} & set(names)
+    texts = 1 if config else 2
+    assert sorted(n for n in names if n.startswith("host.")) == \
+        ["host.results"] * texts + ["host.write"] * texts
+    results = ["atoms_volumes"] if config else ["bader_volumes",
+                                                 "atoms_volumes"]
+    n = b.density.size
+    grids = [s for s in b.spans if s.name.startswith(("upload.",
+                                                      "download."))
+             and s.counters["bytes"] >= n]
+    assert sorted(s.name for s in grids) == sorted(
+        ["download." + r for r in results]
+        + ["upload." + i for i in ("density", "spin")[:len(inputs)]])
+    assert len(joined) == len(results)
+    for r, dtype in zip(results, joined):
+        grid = getattr(b, r)
+        assert grid.dtype == np.int8 and dtype == torch.int8
+        span = next(s for s in grids if s.name == "download." + r)
+        assert span.counters == {"bytes": grid.nbytes, "pinned": 0}
+    if config:
+        assert b.vacuum_volume > 0 and (b.atoms_volumes == -1).any()
+        assert b.atoms_spin.shape == (len(b.atoms),)
+    held = {s.name for s in b.spans if s.name.startswith("resident.")}
+    assert {"resident.atoms_volumes", "resident.density"} <= held
+
+
 def test_pickling_drops_the_mesh(tmp_path):
     tb = Bader.from_dict(JaxBader.from_file(FIXTURE).as_dict, device="cpu",
                          method="ongrid", refine_method="ongrid")

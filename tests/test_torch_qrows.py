@@ -235,11 +235,11 @@ def test_padding_lanes_are_born_done():
 def test_bucket_ladder_and_padding_match_jax(monkeypatch):
     sizes = [1, 4095, 4097, 6000, 100000, (1 << 22) + 1, 7275187,
              (1 << 23) + 5]
-    for fine in ("1", "0"):
-        monkeypatch.setenv("PYBADER_TPU_FINE_BUCKETS", fine)
-        monkeypatch.setattr(jng, "_FINE_BUCKETS", fine == "1")
+    for fine in (True, False):
+        monkeypatch.setattr(jng, "_FINE_BUCKETS", fine)
         for n in sizes:
-            assert tng.bucket_size(n) == jng._bucket_size(n, 4096), (n, fine)
+            assert tng.bucket_size(n, fine_buckets=fine) == \
+                jng._bucket_size(n, 4096), (n, fine)
     for n in (1, 3000, 4097, 70000):
         idx = np.arange(n, dtype=np.int32)
         np.testing.assert_array_equal(

@@ -12,6 +12,8 @@ continuous 'changed' call, also under the environment variants
 counts included wherever both packages walk quantised rows.  Tolerance:
 none, everything compared is integer.
 """
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -261,3 +263,85 @@ def test_full_trajectories_with_block_walk_match_jax(monkeypatch, cap,
     np.testing.assert_array_equal(tm, np.asarray(jm))
     assert (stats["cap_fires"] > 0) == bool(cap)
     assert stats["block_rounds"]
+
+
+# (environment, the Variants fields it sets): every setting the tests of
+# the port set, with the options the pipeline and the ops read from it
+VARIANT_TABLE = [
+    ({}, {}),
+    ({"PYBADER_TPU_FULL_TRAJECTORIES": "0"}, {"full_trajectories": False}),
+    ({"PYBADER_TPU_FULL_TRAJECTORIES": "OFF"}, {"full_trajectories": False}),
+    ({"PYBADER_TPU_FULL_TRAJECTORIES": "1"}, {"full_trajectories": True}),
+    ({"PYBADER_TPU_INTERNAL_ITERS": "1"}, {"internal_iters": 1}),
+    ({"PYBADER_TPU_INTERNAL_ITERS": "-1"}, {"internal_iters": -1}),
+    ({"PYBADER_TPU_INTERNAL_CAP": "2"}, {"internal_cap": 2}),
+    ({"PYBADER_TPU_INTERNAL_CAP": "0"}, {}),
+    ({"PYBADER_TPU_HYBRID_INIT": "nginit"}, {"hybrid_init": "nginit"}),
+    ({"PYBADER_TPU_QROWS": "screened"}, {}),
+    ({"PYBADER_TPU_QROWS": "internal", "PYBADER_TPU_QROWS_CPU": "1"},
+     {"internal_rows": "q", "profile_rows": "exact", "qrows_cpu": True}),
+    ({"PYBADER_TPU_QROWS": "internal", "PYBADER_TPU_QROWS_CPU": "0"},
+     {"internal_rows": "q", "profile_rows": "exact"}),
+    ({"PYBADER_TPU_QROWS": "all"}, {"internal_rows": "q",
+                                    "profile_rows": "q"}),
+    ({"PYBADER_TPU_QROWS": "off"}, {"internal_rows": "exact",
+                                    "profile_rows": "exact"}),
+    ({"PYBADER_TPU_BLOCK_WALK": "1"}, {"block_steps": 24}),
+    ({"PYBADER_TPU_BLOCK_WALK": "1", "PYBADER_TPU_BLOCK_STEPS": "5"},
+     {"block_steps": 5}),
+    ({"PYBADER_TPU_BLOCK_WALK": "0", "PYBADER_TPU_BLOCK_STEPS": "5"}, {}),
+    ({"PYBADER_TPU_FINE_BUCKETS": "0"}, {"fine_buckets": False}),
+]
+
+
+def clear_variants(monkeypatch):
+    for k in list(os.environ):
+        if k.startswith("PYBADER_TPU_"):
+            monkeypatch.delenv(k)
+
+
+@pytest.mark.parametrize("env,fields", VARIANT_TABLE,
+                         ids=[",".join(f"{k[12:]}={v}" for k, v in e.items())
+                              or "unset" for e, _ in VARIANT_TABLE])
+def test_read_variants_table(monkeypatch, env, fields):
+    """The one reader of the variants' environment gives the options the
+    port's reads gave: unset, screened rows for both kinds of walk (which
+    :func:`tpipe._row_format` makes exact without the block phase), no
+    block phase, the fine buckets, the path chosen by size."""
+    clear_variants(monkeypatch)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    want = tpipe.Variants(**fields)
+    assert tpipe.read_variants() == want
+    assert tpipe.Variants() == tpipe.Variants(
+        full_trajectories=None, hybrid_init="ongrid", internal_iters=None,
+        internal_cap=None, internal_rows="qs", profile_rows="qs",
+        qrows_cpu=False, block_steps=None, fine_buckets=True)
+    rho = torch.zeros(2)
+    # the row format each refinement walks on the CPU
+    kinds = {q: tpipe._row_format(q, rho, want)
+             for q in (None, want.internal_rows)}
+    block = want.block_steps is not None
+    for q, kind in kinds.items():
+        rows = want.profile_rows if q is None else q
+        assert kind == {"qs": "qs" if block else "exact",
+                        "q": "q" if want.qrows_cpu else "exact",
+                        "exact": "exact"}[rows]
+
+
+def test_default_refinement_walks_its_edges_unpadded(monkeypatch):
+    """With no variant set, the hybrid's internal walks and the profile's
+    hand ``neargrid_walk`` exactly their edges (no padding lane, no
+    chunk), and the labels and per-iteration counts equal JAX's."""
+    clear_variants(monkeypatch)
+    real = tng.neargrid_walk
+    seen = []
+
+    def walk(rows, starts, *args, **kwargs):
+        seen.append(starts.clone())
+        return real(rows, starts, *args, **kwargs)
+
+    monkeypatch.setattr(tng, "neargrid_walk", walk)
+    ts = both_hybrids(make_density(9), fields=3)
+    assert [s.numel() for s in seen] == [it[0] for it in ts]
+    assert len(seen) >= 3 and all(bool((s >= 0).all()) for s in seen)
