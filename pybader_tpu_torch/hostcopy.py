@@ -1,39 +1,53 @@
 """Copies of the large grids between the host and a CUDA device through a
-ring of page-locked (pinned) host slots.
+ring of page-locked (pinned) host slots, and the warm host buffers that
+the downloads land in.
 
 A copy from a pageable numpy array goes through the driver's own small
 pinned buffers, one thread at a time, and a copy into a fresh pageable
 array also faults in every page of it in that thread.  Here a grid crosses
 in chunks of whole planes (indices of axis 0) through a few pinned slots
 of one fixed size: the host side of each chunk is a PyTorch CPU
-``copy_``, spread over its intra-op threads (which also casts an upload,
-and faults in a download's fresh pages), and the DMA of one chunk runs
-while the host copies the next.  Each slot holds a CUDA event recorded
-after its DMA, and the host waits on it before the slot is used again.
+``copy_``, spread over its intra-op threads (which also casts an upload),
+and the DMA of one chunk runs while the host copies the next.  Each slot
+holds a CUDA event recorded after its DMA, and the host waits on it before
+the slot is used again.
 
 The ring is allocated lazily, once per process and device, on the first
 copy it takes, and pinned host memory stays ``SLOTS * SLOT_BYTES``
-whatever the caller keeps: results are ordinary numpy arrays and device
-tensors.  A copy smaller than one slot, one whose planes do not fit a
-slot, and any copy that is not between the host and a CUDA device take
-PyTorch's plain ``.to()`` / ``.cpu()`` (:func:`staged` decides, from the
-tensor alone).  The chunk loops take their :class:`Ring` as an argument,
-so that tests can drive them with plain host slots.
+whatever the caller keeps.  A download lands in a host buffer of the
+grid's exact size that a process-wide :class:`Pool` lends: one that an
+earlier result gave back when its caller dropped it, its pages already
+faulted in (first touch of fresh pages is the slowest part of a download),
+else a new one.  The result is a writable numpy array of the grid's dtype
+and shape whose base is the loan (:class:`Lease`); the buffer goes back to
+the pool once the caller has dropped the array and every view of it, and
+the pool keeps at most ``POOL_BUFFERS`` free.  A copy smaller than one
+slot, one whose planes do not fit a slot, and any copy that is not between
+the host and a CUDA device take PyTorch's plain ``.to()`` / ``.cpu()``
+(:func:`staged` decides, from the tensor alone).  The chunk loops take
+their :class:`Ring` and :class:`Pool` as arguments, so that tests can
+drive them with plain host slots and pools of their own.
 """
 from __future__ import annotations
 
 import threading
+import weakref
 from math import prod
 
 import numpy as np
 import torch
 
+from pybader_tpu_torch import trace
+
 # Slot size and count, from the rates of 8-64 MiB slots, 2-3 of them, on
 # an H100 host (PERF.md, section 5): two 32 MiB slots upload a 384^3 f64
-# grid fastest, and no size moves a download, which the host's first
-# touch of the result's fresh pages bounds.
+# grid fastest; no size moves a download, whose time is the host's copy
+# out of the slots.
 SLOT_BYTES = 32 << 20
 SLOTS = 2
+# Free download buffers the process keeps: a call's two label grids, of at
+# most two sizes.
+POOL_BUFFERS = 4
 
 
 class Slot:
@@ -73,6 +87,72 @@ class Ring:
 
 _rings: dict = {}  # CUDA device index -> its Ring, made at first use
 _rings_lock = threading.Lock()
+
+
+class Pool:
+    """Free host buffers (uint8 numpy arrays) of whole grids, by byte size:
+    :func:`download` takes one of its grid's size and lends it; the buffer
+    comes back (:meth:`give`) when the loan dies.  At most ``size`` are
+    kept, the least recently returned dropped first.  A return runs from a
+    finalizer, at any point of any thread, :meth:`take` included: so both
+    hold a reentrant lock, and :meth:`take` removes its buffer by identity,
+    whatever a return did to the list meanwhile."""
+
+    def __init__(self, size=POOL_BUFFERS):
+        self.size = size
+        self.free = []  # the least recently returned first
+        self.lock = threading.RLock()
+
+    def take(self, nbytes: int):
+        """The most recently returned free buffer of ``nbytes``, now the
+        caller's, or None."""
+        with self.lock:
+            buf = next((b for b in reversed(self.free) if b.nbytes == nbytes),
+                       None)
+            if buf is not None:
+                self.free = [b for b in self.free if b is not buf]
+            return buf
+
+    def give(self, buf: np.ndarray):
+        """Return ``buf``, which no array uses any more."""
+        with self.lock:
+            self.free.append(buf)
+            del self.free[:max(len(self.free) - self.size, 0)]
+
+
+_pool = Pool()  # the process's download buffers
+
+
+class Lease:
+    """A buffer lent by a :class:`Pool`, seen as a ``dtype`` grid of
+    ``shape``: the base of the array :func:`download` returns.  numpy stops
+    collapsing a view's base at an object that is not an array, so every
+    view derived from that array (slice, transpose, reshape,
+    ``torch.from_numpy``) holds the lease, and the buffer goes back to the
+    pool when the last of them is gone."""
+
+    __slots__ = ("buf", "__array_interface__", "__weakref__")
+
+    def __init__(self, buf: np.ndarray, dtype, shape):
+        self.buf = buf
+        self.__array_interface__ = {
+            "version": 3, "shape": tuple(shape), "typestr": dtype.str,
+            "data": (buf.ctypes.data, False)}  # address, writable
+
+
+def _lend(pool: Pool, nbytes: int, dtype, shape) -> np.ndarray:
+    """A writable ``dtype`` array of ``shape`` in a buffer of ``nbytes``
+    from ``pool`` (a new one where it has none), whose buffer goes back to
+    ``pool`` when the array and its views are gone; the reused bytes count
+    as ``warm`` in the innermost open span."""
+    buf = pool.take(nbytes)
+    if buf is None:
+        buf = np.empty(nbytes, dtype=np.uint8)
+    else:
+        trace.count("warm", nbytes)
+    lease = Lease(buf, dtype, shape)
+    weakref.finalize(lease, pool.give, buf).atexit = False
+    return np.asarray(lease)
 
 
 def _itemsize(dtype) -> int:
@@ -158,13 +238,16 @@ def upload(src: torch.Tensor, dtype, device, ring: Ring | None = None):
     return out
 
 
-def download(src: torch.Tensor, ring: Ring | None = None) -> np.ndarray:
-    """Device tensor ``src`` as a new numpy array, through ``ring`` (by
-    default its device's, :func:`ring_for`): the DMA of one chunk into its
-    slot runs while the host copies the one before out of its slot."""
+def download(src: torch.Tensor, ring: Ring | None = None,
+             pool: Pool | None = None) -> np.ndarray:
+    """Device tensor ``src`` as a numpy array of its own, in a buffer lent
+    by ``pool`` (by default the process's; :func:`_lend`), through ``ring``
+    (by default its device's, :func:`ring_for`): the DMA of one chunk into
+    its slot runs while the host copies the one before out of its slot."""
     r = ring_for(src.device) if ring is None else ring
-    out = np.empty(tuple(src.shape),
-                   dtype=torch.empty((), dtype=src.dtype).numpy().dtype)
+    out = _lend(_pool if pool is None else pool,
+                src.numel() * src.element_size(),
+                torch.empty((), dtype=src.dtype).numpy().dtype, src.shape)
     host = torch.from_numpy(out)
     stream = _stream(src.device)
 

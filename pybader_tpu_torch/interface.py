@@ -53,20 +53,22 @@ def _host(grid, what, dtype=None) -> np.ndarray:
     device (each shard's) before the copy, so that only that dtype
     crosses.  A whole grid of at least one slot comes down through the
     pinned ring (:mod:`~pybader_tpu_torch.hostcopy`), counted as the
-    span's ``pinned`` bytes; a sharded one is joined on the host by plain
-    copies."""
+    span's ``pinned`` bytes, into a host buffer that ``hostcopy``'s pool
+    lends, counted as ``warm`` where an earlier result gave it back; a
+    sharded one is joined on the host by plain copies."""
     if dtype is not None:
         cast = getattr(torch, np.dtype(dtype).name)
         grid = grid.map(lambda b: b.to(cast)) if isinstance(grid, Sharded) \
             else grid.to(cast)
     if isinstance(grid, Sharded):
         nbytes = sum(trace.moved(b, "cpu") for b in grid.blocks)
-        with trace.span("download." + what, bytes=nbytes, pinned=0):
+        with trace.span("download." + what, bytes=nbytes, pinned=0,
+                        warm=0):
             return grid.join().numpy()
     nbytes = trace.moved(grid, "cpu")
     staged = hostcopy.staged(grid, "cpu")
     with trace.span("download." + what, bytes=nbytes,
-                    pinned=nbytes if staged else 0):
+                    pinned=nbytes if staged else 0, warm=0):
         return hostcopy.download(grid) if staged else grid.cpu().numpy()
 
 
@@ -211,7 +213,9 @@ class Bader:
     ``upload.<what>`` or ``download.<what>`` span with the ``bytes`` that
     crossed and the ``pinned`` bytes of them that crossed through the
     pinned ring (:mod:`~pybader_tpu_torch.hostcopy`: the grids of at least
-    one slot, between the host and a CUDA device).
+    one slot, between the host and a CUDA device); a ``download.<what>``
+    also counts ``warm``, the bytes that landed in a host buffer reused
+    from an earlier result that its caller dropped.
 
     Inside a call the grids stay on ``device``, or sharded over a mesh of
     more than one shard.  Each input grid (the density; the reference and
@@ -667,7 +671,8 @@ class Bader:
         if mask is not None:
             mask = _host(mask, "vacuum_mask")
             # the host spans also release the grids they consumed:
-            # unmapping their pages is host time too
+            # unmapping their pages, or handing a lent buffer back to
+            # hostcopy's pool, is host time too
             with trace.span("host.vacuum_where"):
                 volumes = np.where(
                     mask, np.array(-1, dtype=volumes.dtype), volumes)

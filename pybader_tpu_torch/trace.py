@@ -26,9 +26,11 @@ Names: ``stage.<name>`` (a stage of ``Bader.__call__``),
 between host and device: :func:`moved`, summed over the shards on a mesh;
 in ``Bader``'s, counter ``pinned``, the bytes of it that crossed through
 :mod:`~pybader_tpu_torch.hostcopy`'s pinned ring, 0 for a plain copy and
-on a mesh), ``resident.<what>`` (counter ``bytes``, the size of a grid,
-whole or sharded, that a stage took from those the call holds in place of
-a copy), ``host.<what>`` (numpy work: in a call, on one device or a mesh,
+on a mesh, and on a download ``warm``, the bytes of it that landed in a
+host buffer the pool reused, 0 on a miss or a plain copy),
+``resident.<what>`` (counter ``bytes``, the size of a grid, whole or
+sharded, that a stage took from those the call holds in place of a copy),
+``host.<what>`` (numpy work: in a call, on one device or a mesh,
 only ``results``, ``write``, ``pickle`` and ``export``;
 ``vacuum_scan``, ``vacuum_where`` and ``copyto`` only in stages called on
 their own, as ``bader-read`` calls them), ``sums.<what>``

@@ -1,10 +1,13 @@
 """The pinned staging ring (``pybader_tpu_torch.hostcopy``): the chunk
 loops on plain host slots (bit-identical round trips, ragged last chunks,
 Fortran-order sources, host-side casts, one ring shared by threads), the
-choice of the ring from the tensor alone, a ``Bader`` call on the CPU
-whose large copies are routed through a host ring (same results, spans and
-``bytes``; ``pinned`` on the grids alone), and, marked ``cuda``, the ring
-on the card against PyTorch's plain copies.  This file imports no JAX: run
+choice of the ring from the tensor alone, the pool of download buffers
+(a released buffer reused, never one that a view still holds, by size, at
+most ``POOL_BUFFERS`` kept, shared by threads), a ``Bader`` call on the
+CPU whose large copies are routed through a host ring (same results,
+spans and ``bytes``; ``pinned`` on the grids alone; a second call's label
+grids ``warm``), and, marked ``cuda``, the ring and the pool on the card
+against PyTorch's plain copies.  This file imports no JAX: run
 its card tests with ``python -m pytest --noconftest -m cuda
 tests/test_torch_hostcopy.py`` on a machine with an NVIDIA GPU."""
 import contextlib
@@ -31,6 +34,13 @@ def host_ring(slot_bytes, slots=2):
     return hostcopy.Ring(hostcopy.Slot(torch.empty(slot_bytes,
                                                    dtype=torch.uint8))
                          for _ in range(slots))
+
+
+def own(a, ring):
+    """Whether ``a`` is writable, C-contiguous and in memory of its own,
+    none of it a slot of ``ring``."""
+    return a.flags.writeable and a.flags.c_contiguous and not any(
+        np.shares_memory(a, slot.buf.numpy()) for slot in ring.slots)
 
 
 def bits(a):
@@ -77,7 +87,7 @@ def test_staged_round_trip_is_bit_identical(shape, host, dtype, order,
     assert up.dtype == dtype and up.is_contiguous()
     assert np.array_equal(bits(up.numpy()), bits(want.numpy()))
     down = hostcopy.download(up, ring)
-    assert isinstance(down, np.ndarray) and down.flags.owndata
+    assert isinstance(down, np.ndarray) and own(down, ring)
     assert down.dtype == want.numpy().dtype and down.shape == shape
     assert np.array_equal(bits(down), bits(want.numpy()))
     # every case crosses in more than one chunk of whole planes
@@ -143,6 +153,138 @@ def test_threads_share_one_ring(monkeypatch):
     assert not errors and not bad
 
 
+# ------------------------------------------------------------------ the pool
+
+def pooled(src, ring, pool):
+    """``download`` of ``src`` in a span, and the span's ``warm`` bytes."""
+    spans = []
+    with trace.recording(spans), trace.span("download.grid", warm=0):
+        out = hostcopy.download(src, ring, pool)
+    return out, spans[0].counters["warm"]
+
+
+def address(a):
+    return a.__array_interface__["data"][0]
+
+
+# (shape, dtype, slot bytes): an int8 and an int16 label grid, several
+# chunks each, the last ragged
+POOL_CASES = [((24, 28, 32), np.int8, 5 * 28 * 32),
+              ((50, 50, 64), np.int16, 3 * 50 * 64 * 2 + 5)]
+
+
+@pytest.mark.parametrize("shape, dtype, slot_bytes", POOL_CASES)
+def test_a_released_buffer_is_reused(shape, dtype, slot_bytes):
+    ring, pool = host_ring(slot_bytes), hostcopy.Pool()
+    first, warm = pooled(torch.as_tensor(source(shape, dtype, seed=1)),
+                         ring, pool)
+    assert warm == 0 and pool.free == []
+    where = address(first)
+    del first  # by reference count: the buffer is back at once
+    assert [address(b) for b in pool.free] == [where]
+    want = source(shape, dtype, seed=2)
+    second, warm = pooled(torch.as_tensor(want), ring, pool)
+    assert warm == want.nbytes and address(second) == where
+    assert pool.free == [] and own(second, ring)
+    assert second.dtype == want.dtype and second.shape == shape
+    assert np.array_equal(second, want)
+    # a return while the pool's lock is held, as a finalizer may run in
+    # the middle of a take, does not wait on it
+    with pool.lock:
+        del second
+    assert [address(b) for b in pool.free] == [where]
+
+
+VIEWS = {"slice": lambda a: a[1:3, ::2],
+         "transpose": lambda a: a.T,
+         "reshape": lambda a: a.reshape(-1),
+         "torch": torch.from_numpy}
+
+
+@pytest.mark.parametrize("view", sorted(VIEWS))
+@pytest.mark.parametrize("shape, dtype, slot_bytes", POOL_CASES)
+def test_a_live_view_keeps_its_buffer(shape, dtype, slot_bytes, view):
+    ring, pool = host_ring(slot_bytes), hostcopy.Pool()
+    first, _ = pooled(torch.as_tensor(source(shape, dtype, seed=1)), ring,
+                      pool)
+    held = VIEWS[view](first)
+    want = np.array(held)  # a copy of the view's values
+    del first
+    assert pool.free == []  # the view holds the loan
+    other = source(shape, dtype, seed=2)
+    second, warm = pooled(torch.as_tensor(other), ring, pool)
+    assert warm == 0 and np.array_equal(second, other)
+    assert not np.shares_memory(second, np.asarray(held))
+    assert np.array_equal(np.asarray(held), want)
+    del held  # the last view: the buffer comes back
+    third, warm = pooled(torch.as_tensor(other), ring, pool)
+    assert warm == other.nbytes and np.array_equal(third, other)
+
+
+def test_another_size_misses():
+    ring, pool = host_ring(5 * 28 * 32), hostcopy.Pool()
+    first, _ = pooled(torch.as_tensor(source((24, 28, 32), np.int8)), ring,
+                      pool)
+    where = address(first)
+    del first
+    # the same bytes in another shape would fit; only the size decides
+    want = source((25, 28, 32), np.int8)
+    second, warm = pooled(torch.as_tensor(want), ring, pool)
+    assert warm == 0 and np.array_equal(second, want)
+    assert [address(b) for b in pool.free] == [where]
+    same, warm = pooled(torch.as_tensor(source((12, 56, 32), np.int8)),
+                        ring, pool)
+    assert warm == same.nbytes and address(same) == where
+
+
+@pytest.mark.parametrize("size", [0, 1, hostcopy.POOL_BUFFERS])
+def test_the_pool_keeps_at_most_its_size(size):
+    ring, pool = host_ring(5 * 28 * 32), hostcopy.Pool(size)
+    assert hostcopy.Pool().size == hostcopy.POOL_BUFFERS
+    src = torch.as_tensor(source((24, 28, 32), np.int8))
+    held = [hostcopy.download(src, ring, pool)
+            for _ in range(hostcopy.POOL_BUFFERS + 2)]
+    order = [address(a) for a in held]
+    assert len(set(order)) == len(order) and pool.free == []
+    while held:
+        held.pop(0)  # returned in this order
+    assert [address(b) for b in pool.free] == order[len(order) - size:]
+
+
+def test_threads_share_one_pool():
+    """More threads than cores, each holding its last two downloads from
+    one ring and one pool while the others return theirs: no buffer is
+    lent twice, so no held result changes."""
+    ring, pool = host_ring(5 * 28 * 32), hostcopy.Pool()
+    grids = [source((24, 28, 32), np.int8, seed=s) for s in range(16)]
+    bad, errors = [], []
+
+    def work(a):
+        try:
+            held = []
+            for _ in range(30):
+                held = held[-1:] + [hostcopy.download(torch.as_tensor(a),
+                                                      ring, pool)]
+                if not all(np.array_equal(h, a) for h in held):
+                    bad.append(1)
+        except Exception as e:  # noqa: BLE001 (raised in the test thread)
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(a,)) for a in grids]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors and not bad
+    assert len(pool.free) <= hostcopy.POOL_BUFFERS
+
+
 def _call(out, profile, vac):
     out.mkdir()
     kwargs = dict(SPEED_CONFIG if profile == "speed" else {}, device="cpu",
@@ -199,7 +341,7 @@ def test_a_call_through_a_ring_is_the_plain_call(monkeypatch, tmp_path,
                 bits(np.asarray(got)), bits(np.asarray(want))), key
     for key in ("bader_volumes", "atoms_volumes"):
         if hasattr(b, key):
-            assert getattr(b, key).flags.owndata
+            assert own(getattr(b, key), ring)
     # the span count and each copy's bytes are the plain call's
     assert [s.name for s in b.spans] == [s.name for s in plain.spans]
     copies = [(s, p) for s, p in zip(b.spans, plain.spans)
@@ -218,6 +360,46 @@ def test_a_call_through_a_ring_is_the_plain_call(monkeypatch, tmp_path,
     want = {"density", "atoms_volumes"} | (
         set() if profile == "speed" else {"bader_volumes"})
     assert grids == want
+
+
+@pytest.mark.parametrize("profile, vac", [("default", None),
+                                          ("speed", None),
+                                          ("default", 0.2)])
+def test_a_second_call_lands_in_the_first_calls_buffers(monkeypatch,
+                                                        tmp_path, profile,
+                                                        vac):
+    """Two calls through a ring of host slots and a pool of their own, the
+    first object dropped in between: the second call's label grids land
+    in the buffers the first call's gave back (``warm`` equal to
+    ``pinned``), with the first call's values, where the first call's
+    read ``warm`` 0."""
+    slot = 8192
+    monkeypatch.setattr(trace, "moved",
+                        lambda t, device: t.numel() * t.element_size())
+    plain, plain_texts = _call(tmp_path / "plain", profile, vac)
+    ring, pool = host_ring(slot), hostcopy.Pool()
+    monkeypatch.setattr(hostcopy, "staged",
+                        lambda t, device, dtype=None: t.dim() > 0
+                        and t.numel() * t.element_size() >= slot)
+    monkeypatch.setattr(hostcopy, "ring_for", lambda device: ring)
+    monkeypatch.setattr(hostcopy, "_pool", pool)
+    labels = [k for k in ("bader_volumes", "atoms_volumes")
+              if hasattr(plain, k)]
+    warm = []
+    for run in ("first", "second"):
+        b, texts = _call(tmp_path / run, profile, vac)
+        assert texts == plain_texts
+        spans = {s.name: s.counters for s in b.spans
+                 if s.name.startswith("download.")}
+        warm.append([spans["download." + k]["warm"] for k in labels])
+        for k in labels:
+            assert spans["download." + k]["pinned"] >= slot
+            assert np.array_equal(getattr(b, k), getattr(plain, k)), k
+        held = {address(getattr(b, k)) for k in labels}
+        del b
+        assert {address(buf) for buf in pool.free} == held
+    assert warm[0] == [0] * len(labels)
+    assert warm[1] == [getattr(plain, k).nbytes for k in labels]
 
 
 def test_pinned_reads_zero_for_small_copies_and_off_the_card():
@@ -272,10 +454,34 @@ def test_ring_equals_plain_copies_on_the_card(card, shape, host, dtype,
     assert torch.equal(got.view(view[got.element_size()]),
                        want.view(view[want.element_size()]))
     down = hostcopy.download(want)
-    assert down.flags.owndata
+    assert own(down, hostcopy.ring_for(card))
     assert np.array_equal(bits(down), bits(want.cpu().numpy()))
     assert hostcopy.staged(want, "cpu")
     assert not hostcopy.staged(want[:1, :1], "cpu")
+
+
+@pytest.mark.cuda
+def test_the_pool_lends_warm_buffers_on_the_card(card):
+    """A download from the card after the last one of its size was dropped
+    lands in that buffer, counted ``warm``, with the card's values; one
+    whose earlier result is still held takes another buffer."""
+    ring, pool = hostcopy.ring_for(card), hostcopy.Pool()
+    shape = (336, 336, 320)
+    src = [torch.randint(-128, 128, shape, dtype=torch.int8, device=card)
+           for _ in range(2)]
+    want = [t.cpu().numpy() for t in src]
+    first, warm = pooled(src[0], ring, pool)
+    assert warm == 0 and np.array_equal(first, want[0])
+    held = first[::2]
+    del first
+    second, warm = pooled(src[1], ring, pool)
+    assert warm == 0 and np.array_equal(second, want[1])
+    assert np.array_equal(held, want[0][::2])
+    where = address(second)
+    del second
+    third, warm = pooled(src[0], ring, pool)
+    assert warm == third.nbytes and address(third) == where
+    assert np.array_equal(third, want[0]) and own(third, ring)
 
 
 def blob_density(shape, device, centers=6, seed=0):

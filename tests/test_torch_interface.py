@@ -11,11 +11,13 @@ the CLI's ``-o dat`` files equal the JAX ``results()`` text; the default
 profile meets the fixture's golden charges.
 """
 import contextlib
+import gc
 import io
 import json
 import os
 import pickle
 import shutil
+import weakref
 from collections import Counter
 
 import numpy as np
@@ -310,3 +312,35 @@ def test_standalone_stages_re_threshold_like_jax(default_pair):
     assert names["download.vacuum_mask"] == 2
     assert names["upload.bader_volumes"] == names["upload.atoms_volumes"] \
         == 1
+
+
+@pytest.mark.parametrize("config", [
+    {}, {"vacuum_tol": 0.2},
+    {"method": "ongrid", "refine_mode": ("changed", 3), "speed_flag": True},
+    {"env": "0"}], ids=["default", "vacuum", "speed", "hybrid"])
+def test_a_finished_call_is_freed_at_del(config, tmp_path, monkeypatch):
+    """A call leaves no reference cycle: dropping the object frees it, and
+    its label grids with it, by reference count (``hostcopy``'s pool takes
+    a result's buffer back only then), with the collector off.  Its
+    downloads carry ``warm``, 0 where nothing was pooled (on the CPU)."""
+    config = dict(config)
+    if "env" in config:  # the hybrid partition, whatever the grid's size
+        monkeypatch.setenv("PYBADER_TPU_FULL_TRAJECTORIES", config.pop("env"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        b = Bader(*vasp.read(FIXTURE), device="cpu", output="dat",
+                  prefix=str(tmp_path) + os.sep, **config)
+        gc.collect()
+        gc.disable()
+        try:
+            b()
+            downloads = [s for s in b.spans
+                         if s.name.startswith("download.")]
+            alive = [weakref.ref(b), weakref.ref(b.atoms_volumes)]
+            del b
+            assert [r() for r in alive] == [None, None]
+        finally:
+            gc.enable()
+    names = {s.name for s in downloads}
+    assert {"download.atoms_volumes"} <= names
+    assert all(s.counters["warm"] == 0 for s in downloads
+               if s.name not in ("download.first_member", "download.max_pos"))

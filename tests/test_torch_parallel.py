@@ -613,7 +613,8 @@ def test_bader_mesh_call_holds_its_grids_sharded(tmp_path, monkeypatch,
         grid = getattr(b, r)
         assert grid.dtype == np.int8 and dtype == torch.int8
         span = next(s for s in grids if s.name == "download." + r)
-        assert span.counters == {"bytes": grid.nbytes, "pinned": 0}
+        assert span.counters == {"bytes": grid.nbytes, "pinned": 0,
+                                 "warm": 0}
     if config:
         assert b.vacuum_volume > 0 and (b.atoms_volumes == -1).any()
         assert b.atoms_spin.shape == (len(b.atoms),)

@@ -2,9 +2,12 @@
 the plain copies (PyTorch's ``.to()`` from pageable numpy, ``.cpu()`` into
 fresh pages), each half of the pinned ring measured alone (the DMA between
 a pinned buffer and the device; the host's threaded ``copy_`` into warm
-pinned memory and out of it into fresh numpy pages), and the ring itself
-(``pybader_tpu_torch.hostcopy``) at several slot sizes and counts, checked
-bit for bit against the plain copies.
+pinned memory and out of it into fresh or warm numpy pages), the ring
+itself (``pybader_tpu_torch.hostcopy``) at several slot sizes and counts,
+its downloads into fresh pages (``download.ring``, a pool that keeps
+nothing), and the process ring's download into the buffer that the run
+before gave back to a pool (``download.ring_into_reused``), checked bit
+for bit against the plain copies.
 
     python3 tools/hostcopy_rates.py [--reps 5] [--rings 16x2,32x2]
         [--out PATH]
@@ -174,10 +177,20 @@ def main(argv=None):
         emit(recs, args.out, what="download.host_copy_into_warm", grid=name,
              bytes=n, seconds=s, runs=runs)
         del pin, warm
+        # each run drops its result, whose buffer the next run reuses
+        ring, pool = hostcopy.ring_for(dev), hostcopy.Pool()
+        ok = np.array_equal(hostcopy.download(src, ring, pool), want)
+        s, runs = timed(lambda: hostcopy.download(src, ring, pool), reps)
+        emit(recs, args.out, what="download.ring_into_reused", grid=name,
+             bytes=n, slot_mib=hostcopy.SLOT_BYTES >> 20,
+             slots=hostcopy.SLOTS, seconds=s, runs=runs, equal=ok)
+        del pool
+        fresh = hostcopy.Pool(0)  # keeps nothing: every run's pages fresh
         for mib, slots in rings:
             ring = pinned_ring(mib, slots)
-            ok = np.array_equal(hostcopy.download(src, ring), want)
-            s, runs = timed(lambda: hostcopy.download(src, ring), reps)
+            ok = np.array_equal(hostcopy.download(src, ring, fresh), want)
+            s, runs = timed(lambda: hostcopy.download(src, ring, fresh),
+                            reps)
             emit(recs, args.out, what="download.ring", grid=name, bytes=n,
                  slot_mib=mib, slots=slots, seconds=s, runs=runs, equal=ok)
             del ring
