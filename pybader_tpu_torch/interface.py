@@ -721,13 +721,14 @@ class Bader:
         maxima_cart = self.bader_maxima
         with _stage("Assigning maxima to atoms", record=self.stage_seconds,
                     device=self.device):
-            atom_idx, dist = atoms_ops.assign_to_atoms(
-                self._dev(maxima_cart, torch.float64, "maxima"),
-                self._dev(self.atoms, torch.float64, "atoms"),
-                self._dev(self.lattice, torch.float64, "lattice"),
-            )
-            self.bader_atoms = _host(atom_idx, "bader_atoms")
-            self.bader_distance = _host(dist, "bader_distance")
+            args = (self._dev(maxima_cart, torch.float64, "maxima"),
+                    self._dev(self.atoms, torch.float64, "atoms"),
+                    self._dev(self.lattice, torch.float64, "lattice"))
+            with trace.span("atoms.assign", maxima=len(maxima_cart),
+                            atoms=len(self.atoms)):
+                atom_idx, dist = atoms_ops.assign_to_atoms(*args)
+                self.bader_atoms = _host(atom_idx, "bader_atoms")
+                self.bader_distance = _host(dist, "bader_distance")
             atoms_vols = pipeline.relabel(
                 self._take('bader_volumes', torch.int32), atom_idx)
             if self._resident is not None:
@@ -809,11 +810,13 @@ class Bader:
         with _stage("Calculating min. surface distance",
                     record=self.stage_seconds, device=self.device):
             labels = self._take('atoms_volumes', torch.int32)
-            dist = pipeline.surface_distance(
-                self._input('reference'), labels, self.lattice,
-                self._dev(atoms, torch.float64, "atoms"),
-                int(self.atoms.shape[0]))
-            self.atoms_surface_distance = _host(dist, "surface_distance")
+            reference = self._input('reference')
+            atoms = self._dev(atoms, torch.float64, "atoms")
+            n = int(self.atoms.shape[0])
+            with trace.span("surface.distance", atoms=n):
+                dist = pipeline.surface_distance(reference, labels,
+                                                 self.lattice, atoms, n)
+                self.atoms_surface_distance = _host(dist, "surface_distance")
 
     # -------------------------------------------------------------- results
     def results(self, volume_flag=False):

@@ -37,8 +37,11 @@ their own, as ``bader-read`` calls them), ``sums.<what>``
 (the per-label sums of the ``density`` or the ``spin`` and their two small
 downloads; counter ``labels``, the basins or atoms summed over),
 ``vacuum.mask`` (the vacuum mask and its reads; counter ``voxels``, the
-vacuum voxels), ``init``, ``analysis`` (the root), ``partition.*`` and
-``refine.*`` (:mod:`pybader_tpu_torch.pipeline`).
+vacuum voxels), ``atoms.assign`` (the maxima's nearest atoms and the
+two downloads of the assignment; counters ``maxima`` and ``atoms``),
+``surface.distance`` (each atom's distance to its volume's surface and
+its download; counter ``atoms``), ``init``, ``analysis`` (the root),
+``partition.*`` and ``refine.*`` (:mod:`pybader_tpu_torch.pipeline`).
 """
 from __future__ import annotations
 

@@ -474,3 +474,32 @@ def test_vacuum_mask_span_counts_the_vacuum(tmp_path, vac):
     assert (voxels > 0) == (vac == 0.2)
     assert b.spans[masks[0].parent].name == "analysis"
     assert np.isclose(b.vacuum_volume, voxels * b.voxel_volume)
+
+
+@pytest.mark.parametrize("profile", ["default", "speed"])
+def test_per_atom_spans_count_maxima_and_atoms(tmp_path, profile):
+    """A call assigns the maxima to atoms once, in an ``atoms.assign`` span
+    that counts both, and measures the surface once, in a
+    ``surface.distance`` span that counts the atoms; each nests in its
+    stage and holds its result's download, not the inputs' uploads."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        density, lattice, atoms, info = vasp.read(FIXTURE)
+    kwargs = dict(SPEED_CONFIG if profile == "speed" else {},
+                  device="cpu", output="dat", prefix=str(tmp_path) + os.sep)
+    b = _quiet_call(Bader(density, lattice, atoms, info, **kwargs))
+    spans = b.spans
+    n_atoms, n_max = len(b.atoms), len(b.bader_maxima)
+    assign = [s for s in spans if s.name == "atoms.assign"]
+    surface = [s for s in spans if s.name == "surface.distance"]
+    assert [s.counters for s in assign] == [{"maxima": n_max,
+                                             "atoms": n_atoms}]
+    assert [s.counters for s in surface] == [{"atoms": n_atoms}]
+    assert spans[assign[0].parent].name == "stage.Assigning maxima to atoms"
+    assert spans[surface[0].parent].name == \
+        "stage.Calculating min. surface distance"
+    inner = {s.name for s in spans if s.parent in (assign[0].id,
+                                                   surface[0].id)}
+    assert inner == {"download.bader_atoms", "download.bader_distance",
+                     "download.surface_distance"}
+    assert b.bader_atoms.shape == (n_max,)
+    assert b.atoms_surface_distance.shape == (n_atoms,)
