@@ -21,7 +21,8 @@ faulted in (first touch of fresh pages is the slowest part of a download),
 else a new one.  The result is a writable numpy array of the grid's dtype
 and shape whose base is the loan (:class:`Lease`); the buffer goes back to
 the pool once the caller has dropped the array and every view of it, and
-the pool keeps at most ``POOL_BUFFERS`` free.  A copy smaller than one
+the pool keeps at most ``POOL_BUFFERS`` free; a CHGCAR's density grid
+is read into one too (:func:`empty`).  A copy smaller than one
 slot, one whose planes do not fit a slot, and any copy that is not between
 the host and a CUDA device take PyTorch's plain ``.to()`` / ``.cpu()``
 (:func:`staged` decides, from the tensor alone).  The chunk loops take
@@ -45,8 +46,8 @@ from pybader_tpu_torch import trace
 # out of the slots.
 SLOT_BYTES = 32 << 20
 SLOTS = 2
-# Free download buffers the process keeps: a call's two label grids, of at
-# most two sizes.
+# Free host buffers the process keeps: a call's two label grids, of at
+# most two sizes, and a density read from a file.
 POOL_BUFFERS = 4
 
 
@@ -153,6 +154,15 @@ def _lend(pool: Pool, nbytes: int, dtype, shape) -> np.ndarray:
     lease = Lease(buf, dtype, shape)
     weakref.finalize(lease, pool.give, buf).atexit = False
     return np.asarray(lease)
+
+
+def empty(shape, dtype) -> np.ndarray:
+    """A writable numpy array of ``shape`` and ``dtype`` in a host buffer
+    lent by the process's pool, as a download's (:func:`_lend`): where a
+    grid of its size was given back, its pages are already faulted in.
+    What a reader fills with a grid that the caller keeps, then drops."""
+    dtype, shape = np.dtype(dtype), tuple(int(s) for s in shape)
+    return _lend(_pool, prod(shape) * dtype.itemsize, dtype, shape)
 
 
 def _itemsize(dtype) -> int:

@@ -205,8 +205,9 @@ class Bader:
                   multi-device path, ``parallel/``).  Not a config.ini key
                   and not pickled.
 
-    ``spans``: the spans (:mod:`pybader_tpu_torch.trace`) of ``__init__``
-    and of the last call, not pickled.  Each walking iteration of the
+    ``spans``: the spans (:mod:`pybader_tpu_torch.trace`) of the file's
+    read (:meth:`from_file`), of ``__init__`` and of the last call, not
+    pickled.  Each walking iteration of the
     refinement, the hybrid partition's internal ones included, is a
     ``refine.iteration`` span whose counters ``edges``, ``changed``,
     ``cap_fires`` and ``risky`` record how it converged; each copy is an
@@ -236,9 +237,9 @@ class Bader:
     _resident = None  # a call's grids on the device (per call, not pickled)
 
     def __init__(self, density_dict, lattice, atoms, file_info, **kwargs):
-        # the spans of this object (pybader_tpu_torch.trace): 'init', then
-        # each call's
-        self.spans = []
+        # the spans of this object (pybader_tpu_torch.trace): the file's
+        # read where from_file made it, 'init', then each call's
+        self.spans = self.__dict__.get('spans', [])
         with trace.recording(self.spans), trace.span("init"):
             self._density = density_dict
             self._lattice = np.asarray(lattice, dtype=np.float64)
@@ -255,7 +256,11 @@ class Bader:
     # ------------------------------------------------------------------ io
     @classmethod
     def from_file(cls, filename, file_type=None, **kwargs):
-        """Initialise from a density file, dispatching on extension."""
+        """Initialise from a density file, dispatching on extension.
+
+        The read is recorded (:mod:`pybader_tpu_torch.trace`): its spans
+        (``read.<key>``, one a density block of a CHGCAR) lead
+        ``spans``, in front of 'init'."""
         if file_type is not None:
             file_type = file_type.lower()
             io_ = None
@@ -268,21 +273,28 @@ class Bader:
                 raise ValueError(
                     f"unknown file_type {file_type!r}; available: {known}"
                 )
-            file_conf = {k: v for k, v in kwargs.items() if k in io_.__args__}
-            return cls(*io_.read(filename, **file_conf), **kwargs)
+            return cls._read(io_, filename, kwargs)
         for name, package in getmembers(io, ismodule):
             if getattr(package, '__extensions__', None) is None:
                 continue
             for ext in package.__extensions__:
                 if ext in filename.lower():
-                    file_conf = {
-                        k: v for k, v in kwargs.items()
-                        if k in package.__args__
-                    }
-                    return cls(*package.read(filename, **file_conf), **kwargs)
+                    return cls._read(package, filename, kwargs)
         print("  No clear file type found; file will be read as chgcar.")
-        file_conf = {k: v for k, v in kwargs.items() if k in io.vasp.__args__}
-        return cls(*io.vasp.read(filename, **file_conf), **kwargs)
+        return cls._read(io.vasp, filename, kwargs)
+
+    @classmethod
+    def _read(cls, reader, filename, kwargs):
+        """``reader.read`` of the file inside a recording, then the
+        instance, whose spans start with the read's."""
+        file_conf = {k: v for k, v in kwargs.items() if k in reader.__args__}
+        spans = []
+        with trace.recording(spans):
+            data = reader.read(filename, **file_conf)
+        self = cls.__new__(cls)
+        self.spans = spans
+        self.__init__(*data, **kwargs)
+        return self
 
     @classmethod
     def from_dict(cls, d, **kwargs):
@@ -570,10 +582,13 @@ class Bader:
     def __call__(self, **kwargs):
         """Run the full Bader pipeline (reference interface.py:399-447).
 
-        ``self.spans`` ends as the 'init' span and this call's, under the
-        root span 'analysis' (:mod:`pybader_tpu_torch.trace`)."""
-        self.spans = [s for s in getattr(self, 'spans', ())
-                      if s.name == 'init' and s.parent is None][:1]
+        ``self.spans`` ends as the read's spans and the 'init' span, and
+        this call's under the root span 'analysis'
+        (:mod:`pybader_tpu_torch.trace`)."""
+        spans = getattr(self, 'spans', [])
+        names = [s.name for s in spans]
+        self.spans = spans[:names.index('init') + 1] if 'init' in names \
+            else []
         with trace.recording(self.spans), trace.span("analysis"):
             self._call(kwargs)
 

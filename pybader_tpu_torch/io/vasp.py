@@ -1,12 +1,20 @@
 """VASP CHGCAR / .vasp density reader and writer.
 
-A copy of :mod:`pybader_tpu.io.vasp`.  Format parity with the reference
-pybader reader (io/vasp.py:15-164): densities are stored x-major (the file
-is z-fastest), values are divided by the cell volume (file stores rho * V),
+Format parity with :mod:`pybader_tpu.io.vasp` and the reference pybader
+reader (io/vasp.py:15-164): densities are stored x-major (the file is
+x-fastest), values are divided by the cell volume (file stores rho * V),
 atoms are
 wrapped into the cell and returned cartesian.  The spin block is located by
 scanning forward for a repeat of the grid-dimensions line (more robust than
 the reference's mid-file seek heuristic); augmentation charges are ignored.
+
+Each density block goes from the file's bytes to its x-major grid, over
+the cell volume, in one native pass on every core
+(:func:`~pybader_tpu_torch.io._fastparse.read_chgcar_block`), which
+places each value by its index in the file, so lines may vary in width.
+Where that library cannot be built or loaded, the block is read as the
+JAX package reads it: the native or numpy float parse of lines of the
+first line's width, then the axis swap and the division.
 """
 from __future__ import annotations
 
@@ -15,6 +23,8 @@ from time import time
 
 import numpy as np
 
+from pybader_tpu_torch import hostcopy, trace
+from pybader_tpu_torch.io import _fastparse
 from pybader_tpu_torch.utils import (fortran_format, parse_float_block,
                                python_format, tqdm_wrap)
 
@@ -51,36 +61,65 @@ def _skip_block(f, grid_pts):
         f.readline()
 
 
+def _read_density(f, fn, key, grid, volume, threads, lib):
+    """The density block at f's position as the x-major grid over the cell
+    ``volume``, read in a ``read.<key>`` span that counts the block's text
+    ``bytes``, the ``direct`` bytes of them that the native reader parsed
+    (all of them, or 0 where ``lib`` is None: the Python path) and the
+    grid's bytes that landed ``warm`` in a pooled host buffer."""
+    with trace.span("read." + key, warm=0):
+        start = f.tell()
+        if lib is not None:
+            vals = hostcopy.empty(grid, np.float64)
+            f.seek(_fastparse.read_chgcar_block(lib, fn, start, grid, vals,
+                                                volume, threads))
+        else:
+            vals = _read_block(f, int(np.prod(grid)), threads)
+            vals = np.ascontiguousarray(
+                np.swapaxes(vals.reshape(grid[::-1]), 0, -1))
+            vals /= volume
+        trace.count("bytes", f.tell() - start)
+        trace.count("direct", f.tell() - start if lib is not None else 0)
+    return vals
+
+
 def read(fn, charge_flag=True, spin_flag=False, buffer_size=64,
          threads=None):
     """Read charge and/or spin density from a CHGCAR-style file.
 
-    ``threads`` caps the native parser's host threads (CLI -j flag).
+    ``threads`` caps the native reader's host threads (CLI -j flag).
     returns (density dict, lattice 3x3, atoms cartesian, file_info).
     """
     t0 = time()
     density = {}
     prefix, filename = os.path.split(fn)
     prefix = os.path.join(prefix, "")
-    with open(fn, "r") as f:
+    try:
+        lib = _fastparse.load_chgcar()
+    except Exception:  # no compiler or no build: the Python block reader
+        lib = None
+    with open(fn, "rb") as f:
+        def line():
+            return f.readline().decode("latin-1")
+
         print(f"  Reading {f.name} as CHGCAR format.")
-        _ = f.readline()  # comment
-        scale = np.array(f.readline().split(), dtype=np.float64)
+        _ = line()  # comment
+        scale = np.array(line().split(), dtype=np.float64)
         lattice = np.zeros((3, 3), dtype=np.float64)
         for i in range(3):
-            lattice[i] = f.readline().split()
-        species_line = f.readline().split()
+            lattice[i] = line().split()
+        species_line = line().split()
         try:
             atom_nums = np.array(species_line, dtype=np.int64)
             atom_types = None
         except ValueError:
             atom_types = species_line
-            atom_nums = np.array(f.readline().split(), dtype=np.int64)
+            atom_nums = np.array(line().split(), dtype=np.int64)
         atom_sum = int(atom_nums.sum())
-        coord_system = f.readline().lstrip().lower()
+        coord_system = line().lstrip().lower()
         atoms = np.zeros((atom_sum, 3), dtype=np.float64)
         for i in range(atom_sum):
-            atoms[i] = f.readline().split()[:3]
+            atoms[i] = line().split()[:3]
         if scale.shape[0] == 1:
             lattice *= scale[0]
         else:
@@ -90,40 +129,37 @@ def read(fn, charge_flag=True, spin_flag=False, buffer_size=64,
         else:
             atoms = np.dot(atoms, np.linalg.inv(lattice))
             atoms %= 1
-        _ = f.readline()  # blank separator
-        grid_str = f.readline()
+        lattice_vol = np.dot(lattice[0], np.cross(lattice[1], lattice[2]))
+        _ = line()  # blank separator
+        grid_str = line()
         grid = np.array(grid_str.split(), dtype=np.int64)
         grid_pts = int(np.prod(grid))
         print(f"  {' x '.join(grid.astype(str))} grid size.")
         if charge_flag:
-            vals = _read_block(f, grid_pts, threads)
-            density["charge"] = np.ascontiguousarray(
-                np.swapaxes(vals.reshape(grid[::-1]), 0, -1)
-            )
+            density["charge"] = _read_density(f, fn, "charge", grid,
+                                              lattice_vol, threads, lib)
+        elif lib is not None:
+            f.seek(_fastparse.read_chgcar_block(lib, fn, f.tell(), grid,
+                                                None, threads=threads))
         else:
             _skip_block(f, grid_pts)
         if spin_flag:
             found = False
             while True:
-                line = f.readline()
-                if not line:
+                text = line()
+                if not text:
                     break
-                if line.split() == grid_str.split():
+                if text.split() == grid_str.split():
                     found = True
                     break
             if not found:
                 print(f"  No spin density in {fn}")
                 spin_flag = False
             else:
-                vals = _read_block(f, grid_pts, threads)
-                density["spin"] = np.ascontiguousarray(
-                    np.swapaxes(vals.reshape(grid[::-1]), 0, -1)
-                )
+                density["spin"] = _read_density(f, fn, "spin", grid,
+                                                lattice_vol, threads, lib)
         print(f"  File {f.name} closed. ", end="")
     atoms = np.dot(atoms, lattice)
-    lattice_vol = np.dot(lattice[0], np.cross(lattice[1], lattice[2]))
-    for key in density:
-        density[key] /= lattice_vol
     print(f"Time taken: {time() - t0:0.3f}s", end="\n\n")
     file_info = {
         "filename": filename,

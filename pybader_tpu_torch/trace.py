@@ -41,7 +41,16 @@ vacuum voxels), ``atoms.assign`` (the maxima's nearest atoms and the
 two downloads of the assignment; counters ``maxima`` and ``atoms``),
 ``surface.distance`` (each atom's distance to its volume's surface and
 its download; counter ``atoms``), ``init``, ``analysis`` (the root),
-``partition.*`` and ``refine.*`` (:mod:`pybader_tpu_torch.pipeline`).
+``partition.*`` and ``refine.*`` (:mod:`pybader_tpu_torch.pipeline`),
+and in front of ``init`` where ``Bader.from_file`` read the file,
+``read.<key>`` (each density block of a CHGCAR, ``charge`` and ``spin``,
+from its text to the x-major grid over the cell volume:
+:func:`pybader_tpu_torch.io.vasp.read`; counters ``bytes``, the block's
+text, and ``direct``, the bytes of it that the native reader parsed
+straight into the grid, 0 on the Python fallback: the direct path's
+engagement is ``direct / bytes``; and ``warm``, the grid's bytes where
+it landed in a host buffer that :mod:`~pybader_tpu_torch.hostcopy`'s
+pool reused, 0 on a miss and on the fallback).
 """
 from __future__ import annotations
 

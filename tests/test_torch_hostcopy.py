@@ -372,7 +372,8 @@ def test_a_second_call_lands_in_the_first_calls_buffers(monkeypatch,
     first object dropped in between: the second call's label grids land
     in the buffers the first call's gave back (``warm`` equal to
     ``pinned``), with the first call's values, where the first call's
-    read ``warm`` 0."""
+    read ``warm`` 0; the second read of the file lands in the buffer of
+    the first's density, which came back with them."""
     slot = 8192
     monkeypatch.setattr(trace, "moved",
                         lambda t, device: t.numel() * t.element_size())
@@ -385,7 +386,7 @@ def test_a_second_call_lands_in_the_first_calls_buffers(monkeypatch,
     monkeypatch.setattr(hostcopy, "_pool", pool)
     labels = [k for k in ("bader_volumes", "atoms_volumes")
               if hasattr(plain, k)]
-    warm = []
+    warm, density = [], []
     for run in ("first", "second"):
         b, texts = _call(tmp_path / run, profile, vac)
         assert texts == plain_texts
@@ -396,8 +397,10 @@ def test_a_second_call_lands_in_the_first_calls_buffers(monkeypatch,
             assert spans["download." + k]["pinned"] >= slot
             assert np.array_equal(getattr(b, k), getattr(plain, k)), k
         held = {address(getattr(b, k)) for k in labels}
+        density.append(address(b.density))
         del b
-        assert {address(buf) for buf in pool.free} == held
+        assert {address(buf) for buf in pool.free} == held | {density[-1]}
+    assert density[1] == density[0]
     assert warm[0] == [0] * len(labels)
     assert warm[1] == [getattr(plain, k).nbytes for k in labels]
 

@@ -242,6 +242,49 @@ def test_second_call_keeps_init_and_replaces_the_rest(tmp_path):
     assert [s.id for s in b.spans] == list(range(len(b.spans)))
 
 
+def _block_bytes(fn):
+    """The bytes of the fixture's density block: from the line after the
+    grid line to the end of the file."""
+    with open(fn, "rb") as f:
+        lines = f.readlines()
+    grid = next(i for i, line in enumerate(lines)
+                if line.split() == [b"24", b"28", b"32"])
+    return sum(len(line) for line in lines[grid + 1:])
+
+
+def test_from_file_spans_lead_with_the_read(tmp_path):
+    with contextlib.redirect_stdout(io.StringIO()):
+        b = Bader.from_file(FIXTURE, device="cpu", output="dat",
+                            prefix=str(tmp_path) + os.sep)
+    assert [s.name for s in b.spans] == ["read.charge", "init"]
+    read = b.spans[0]
+    # the native path parsed the whole block
+    size = _block_bytes(FIXTURE)
+    assert read.counters["bytes"] == read.counters["direct"] == size
+    assert [s.parent for s in b.spans] == [None, None]
+    assert read.end_ns <= b.spans[1].start_ns
+    for _ in range(2):
+        names = [s.name for s in _quiet_call(b).spans]
+        assert names[:3] == ["read.charge", "init", "analysis"]
+        assert b.spans[0] is read
+        assert [s.id for s in b.spans] == list(range(len(b.spans)))
+
+
+def test_profiled_from_file_sums_its_read_once(monkeypatch, tmp_path):
+    monkeypatch.setattr(trace, "profiled", defaultdict(Counter))
+    kwargs = dict(device="cpu", output="dat", prefix=str(tmp_path) + os.sep)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with contextlib.redirect_stdout(io.StringIO()):
+            b = Bader.from_file(FIXTURE, **kwargs)
+        _quiet_call(b)
+    assert "pb.read.charge" in {e.name for e in prof.events()}
+    got = trace.profiled
+    size = _block_bytes(FIXTURE)
+    assert got["read.charge"]["count"] == got["init"]["count"] == 1
+    assert got["read.charge"]["bytes"] == got["read.charge"]["direct"] == size
+    assert np.isclose(got["read.charge"]["ns"] * 1e-9, b.spans[0].seconds)
+
+
 def test_spans_are_not_pickled(traced):
     b, _ = traced
     assert "spans" not in b.__getstate__()
